@@ -1,0 +1,103 @@
+"""Building blocks of the network: ``ConvBlock`` and ``ResBlock2D``.
+
+Counterparts of ``hobot_stereonet_tpu/models/layers.py``.  Modules run in
+NCHW (PyTorch's layout); submodule names are the flax module names
+(``Conv_0``, ``GroupNorm_0``, ``ConvBlock_0``) so that a flax parameter
+path maps onto a ``state_dict`` key one to one (``runtime/weights.py``).
+
+Where the reference's numerics differ from PyTorch's defaults:
+
+  * padding "SAME" is flax's: for a 5x5 stride-2 conv on an even size it
+    pads (1, 2), not (2, 2);
+  * GroupNorm has eps 1e-6 and computes in float32 with float32 parameters,
+    whatever the activation dtype, rounding its output to that dtype once;
+  * LeakyReLU has slope 0.2, and ``ResBlock2D`` applies it after the add.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+NEGATIVE_SLOPE = 0.2
+GN_EPS = 1e-6
+
+
+def num_groups(features: int) -> int:
+    for g in (8, 4, 2, 1):
+        if features % g == 0:
+            return g
+    return 1
+
+
+def _same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
+    """flax/XLA "SAME" padding (low, high) along one axis."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+class SameConv2d(nn.Conv2d):
+    """``nn.Conv2d`` with flax's "SAME" padding, symmetric or not."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int = 3, stride: int = 1):
+        super().__init__(in_ch, out_ch, kernel, stride=stride, padding=0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        kh, kw = self.kernel_size
+        ph = _same_pads(x.shape[2], kh, self.stride[0])
+        pw = _same_pads(x.shape[3], kw, self.stride[1])
+        if ph[0] == ph[1] and pw[0] == pw[1]:
+            return F.conv2d(x, self.weight, self.bias, self.stride, (ph[0], pw[0]))
+        x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
+        return F.conv2d(x, self.weight, self.bias, self.stride)
+
+
+class GroupNorm(nn.GroupNorm):
+    """flax ``GroupNorm``: eps 1e-6, float32 statistics and parameters."""
+
+    def __init__(self, channels: int):
+        super().__init__(num_groups(channels), channels, eps=GN_EPS)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.group_norm(x.float(), self.num_groups, self.weight.float(),
+                         self.bias.float(), self.eps)
+        return y.to(x.dtype)
+
+
+class ConvBlock(nn.Module):
+    """Conv2D + GroupNorm + LeakyReLU(0.2)."""
+
+    def __init__(self, in_ch: int, features: int, kernel: int = 3, stride: int = 1):
+        super().__init__()
+        self.Conv_0 = SameConv2d(in_ch, features, kernel, stride)
+        self.GroupNorm_0 = GroupNorm(features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.leaky_relu(self.GroupNorm_0(self.Conv_0(x)), NEGATIVE_SLOPE)
+
+
+class ResBlock2D(nn.Module):
+    """Two 3x3 convs with a skip connection; LeakyReLU after the add."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.ConvBlock_0 = ConvBlock(features, features)
+        self.Conv_0 = SameConv2d(features, features, 3)
+        self.GroupNorm_0 = GroupNorm(features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.GroupNorm_0(self.Conv_0(self.ConvBlock_0(x)))
+        return F.leaky_relu(x + h, NEGATIVE_SLOPE)
+
+
+def cast_convs(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Put every conv's weights in ``dtype`` (the compute dtype) and leave
+    GroupNorm's in float32, as the reference computes them."""
+    for m in module.modules():
+        if isinstance(m, nn.Conv2d):
+            m.to(dtype)
+    return module

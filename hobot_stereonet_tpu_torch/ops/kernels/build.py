@@ -1,0 +1,139 @@
+"""Build and load the port's CUDA kernels.
+
+All sources in ``hobot_stereonet_tpu_torch/csrc/*.cu`` compile in ONE
+``nvcc`` call into ``build/kernels/libhst_kernels.so`` (under the checkout
+root) the first time a kernel is launched, and again whenever a source's
+hash changes.  Each source exports ``extern "C"`` functions that take raw
+pointers, sizes and a ``cudaStream_t`` and return ``cudaGetLastError()``;
+they are bound here with ``ctypes``.  No PyTorch headers are compiled, so
+the build takes seconds.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+LIB_NAME = "libhst_kernels.so"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+BUILD_TIMEOUT_S = 600
+
+# Kernel launches on CUDA tensors, by kernel name.  Each wrapper adds one
+# where it launches its kernel and nowhere else; plain-version calls on CPU
+# tensors do not count.
+launch_counts: "collections.Counter[str]" = collections.Counter()
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signature of every exported function: (argtypes), restype is int.
+_SIGNATURES = {
+    # src, dst, B, H, W, stream
+    "hst_nv12_ingest": (_P, _P, _I, _I, _I, _P),
+    # fl, fr, out, B, H, W, C, D, is_bf16, stream
+    "hst_correlation": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # logits, disp, conf, N, D, scale, is_bf16, stream
+    "hst_soft_argmin": (_P, _P, _P, _I, _I, _F, _I, _P),
+}
+
+_lock = threading.Lock()
+_lib = None
+
+
+def reset_launch_counts() -> None:
+    launch_counts.clear()
+
+
+def sources() -> list:
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = Path(cuda_home) / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def build() -> Path:
+    """Compile the kernels if the library is missing or out of date.
+
+    Returns the library's path.  Prints the build's wall time and writes
+    the compiler's output (``-Xptxas -v``: registers, shared memory,
+    spills) to ``build/kernels/build.log``.
+    """
+    digest = _source_hash()
+    lib_path = BUILD_DIR / LIB_NAME
+    stamp = BUILD_DIR / "source.sha256"
+    if lib_path.is_file() and stamp.is_file() and stamp.read_text().strip() == digest:
+        return lib_path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f".{LIB_NAME}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    t0 = time.monotonic()
+    proc = subprocess.run(cmd, capture_output=True, text=True,
+                          timeout=BUILD_TIMEOUT_S)
+    wall = time.monotonic() - t0
+    (BUILD_DIR / "build.log").write_text(
+        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}) after {wall:.1f} s:\n"
+            f"{proc.stderr[-4000:]}")
+    os.replace(tmp, lib_path)
+    stamp.write_text(digest + "\n")
+    print(f"[kernels] built {lib_path.name} from {len(sources())} sources "
+          f"in {wall:.2f} s", flush=True)
+    return lib_path
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def check(name: str, err: int) -> None:
+    """Raise if a kernel's C entry point reported a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def stream_handle(t) -> int:
+    """The raw ``cudaStream_t`` of the current stream on ``t``'s device."""
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream

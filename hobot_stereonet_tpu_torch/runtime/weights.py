@@ -1,0 +1,113 @@
+"""Carry the JAX package's flax parameters into the port's modules.
+
+A flax parameter path maps one to one onto a ``state_dict`` key, because
+the port's submodules carry the flax module names
+(``FeatureTower_0/ConvBlock_0/Conv_0/kernel`` ->
+``FeatureTower_0.ConvBlock_0.Conv_0.weight``):
+
+  * conv ``kernel`` HWIO -> ``weight`` OIHW;
+  * GroupNorm ``scale`` -> ``weight``; ``bias`` stays ``bias``.
+
+The trees come as nested mappings of numpy arrays.  ``from_flax_params``
+also takes the variables dict ``{"params": ...}`` and a train state, whose
+weights sit under ``["params"]["params"]`` beside ``opt_state``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Tuple
+
+import numpy as np
+import torch
+
+from ..config import StereoNetConfig
+
+
+def _expected_state(cfg: StereoNetConfig) -> Dict[str, Tuple[int, ...]]:
+    from ..models import FastStereoNet
+
+    model = FastStereoNet(cfg, device="meta")
+    return {k: tuple(v.shape) for k, v in model.state_dict().items()}
+
+
+def _unwrap(tree: Mapping) -> Mapping:
+    if "opt_state" in tree and "params" in tree:        # train state
+        tree = tree["params"]
+    while set(tree.keys()) == {"params"}:               # variables dict
+        tree = tree["params"]
+    return tree
+
+
+def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
+    for name, value in tree.items():
+        path = prefix + (str(name),)
+        if isinstance(value, Mapping):
+            yield from _flatten(value, path)
+        else:
+            yield path, value
+
+
+def flax_to_state_dict(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """Map a flax parameter tree (of any module of the port) onto ``state_dict``
+    keys and layouts, without checking it against a model."""
+    state: Dict[str, torch.Tensor] = {}
+    for path, value in _flatten(_unwrap(tree)):
+        arr = np.array(value, dtype=np.float32)             # a writable copy
+        leaf = path[-1]
+        if leaf == "kernel":
+            if arr.ndim != 4:
+                raise ValueError(f"{'/'.join(path)}: expected a 2D conv kernel, got {arr.shape}")
+            arr = arr.transpose(3, 2, 0, 1)
+            leaf = "weight"
+        elif leaf == "scale":
+            leaf = "weight"
+        elif leaf != "bias":
+            raise KeyError(f"unexpected flax parameter {'/'.join(path)}")
+        state[".".join(path[:-1] + (leaf,))] = torch.from_numpy(np.ascontiguousarray(arr))
+    return state
+
+
+def from_flax_params(tree: Mapping, cfg: StereoNetConfig = StereoNetConfig()
+                     ) -> Dict[str, torch.Tensor]:
+    """Flax parameter tree of ``FastStereoNet(cfg)`` -> the port's ``state_dict``.
+
+    Raises ``KeyError`` on a missing or an extra parameter and
+    ``ValueError`` on a shape that does not match ``cfg``.
+    """
+    expected = _expected_state(cfg)
+    state = flax_to_state_dict(tree)
+    missing = sorted(set(expected) - set(state))
+    extra = sorted(set(state) - set(expected))
+    if missing or extra:
+        raise KeyError(f"flax parameters do not match FastStereoNet: "
+                       f"missing {missing}, extra {extra}")
+    for key, shape in expected.items():
+        if tuple(state[key].shape) != shape:
+            raise ValueError(f"{key}: expected shape {shape}, got {tuple(state[key].shape)}")
+    return state
+
+
+def random_flax_params(cfg: StereoNetConfig = StereoNetConfig(), seed: int = 0) -> dict:
+    """Seeded random parameters in the flax tree's layout and shapes.
+
+    Conv kernels follow flax's default ``lecun_normal`` (normal with std
+    ``1/sqrt(fan_in)``, clipped at two std), biases are zero, GroupNorm
+    scales one.  Made with numpy, so any machine gives the same weights.
+    """
+    rng = np.random.default_rng(seed)
+    tree: dict = {}
+    for key, shape in _expected_state(cfg).items():
+        *mods, leaf = key.split(".")
+        node = tree
+        for m in mods:
+            node = node.setdefault(m, {})
+        if leaf == "bias":
+            node["bias"] = np.zeros(shape, np.float32)
+        elif len(shape) == 4:                           # conv OIHW -> HWIO
+            o, i, kh, kw = shape
+            std = 1.0 / np.sqrt(i * kh * kw)
+            w = np.clip(rng.standard_normal((kh, kw, i, o)), -2.0, 2.0) * std
+            node["kernel"] = w.astype(np.float32)
+        else:                                           # GroupNorm scale
+            node["scale"] = np.ones(shape, np.float32)
+    return {"params": tree}

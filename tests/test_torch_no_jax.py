@@ -1,0 +1,30 @@
+"""The port imports neither JAX, flax, orbax nor the JAX package."""
+
+import subprocess
+import sys
+
+CHECK = r"""
+import importlib, pkgutil, sys
+import hobot_stereonet_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "orbax", "hobot_stereonet_tpu"))
+print(len(names), bad)
+assert len(names) >= 20, names
+assert not bad, bad
+"""
+
+
+def test_port_imports_no_jax():
+    proc = subprocess.run([sys.executable, "-c", CHECK], capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_chip_smoke_imports_no_jax():
+    src = open("chip_smoke.py").read()
+    for word in ("import jax", "from jax", "import flax", "orbax", "hobot_stereonet_tpu."):
+        assert word not in src, word
+    compile(src, "chip_smoke.py", "exec")
