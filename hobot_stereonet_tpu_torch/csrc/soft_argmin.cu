@@ -14,27 +14,85 @@
 // disp, conf: [N] f32.
 //
 // Bound on the H100: memory.  At the main path's shapes (B=8, 90x160
-// pixels, D=24, bf16 logits) it must read 5.5 MB and write 0.9 MB, 1.9 us
-// at 3.35 TB/s; its 24 exponentials a pixel are far below the card's rate.
+// pixels, D=24, bf16 logits) it must read 5.5 MB and write 0.9 MB: 6.4 MB,
+// 1.9 us at 3.35 TB/s (25.8 MB, 7.7 us at B=32); its 24 exponentials a
+// pixel are far below the card's rate.
 //
-// Design: one thread per pixel, all arithmetic in f32 registers.  A first
-// pass over the pixel's D logits finds the maximum; a second pass (served
-// from L1) sums the exponentials and their disparity-weighted sum.  Nothing
-// but the two outputs is written.
+// Design, bf16 with D=24 and 16-byte aligned rows (the main path): one
+// thread a pixel.  It loads its pixel's 48-byte row as three 16-byte
+// loads; a warp's three loads cover its 32 pixels' 1,536 contiguous bytes,
+// so every byte fetched is used, the second and third from L1.  The D
+// logits stay in registers, packed two to a register, so one pass over
+// them takes the maximum (bf16x2 max, exact), then exp2((l - max) * log2 e),
+// their sum and their disparity-weighted sum in f32.  Each thread stores
+// its two outputs, coalesced.  Staging a warp's rows through shared memory
+// with fully coalesced loads, several 32-pixel groups a warp with cp.async,
+// a persistent grid, and two pixels a thread were tried on the H100 and
+// were no faster; PERF.md compares the kernel's rate with the ingest
+// kernel's.
+//
+// Generic (other D, f32 logits, rows not 16-byte aligned): one thread a
+// pixel, scalar loads; a first pass finds the maximum, a second (served
+// from L1) sums the exponentials.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <stdint.h>
 
 namespace {
+
+constexpr int kThreads = 256;
+constexpr int kVectorD = 24;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Softmax statistics of one pixel's D bf16 logits, packed two to a register.
+template <int D>
+__device__ __forceinline__ void pixel_stats(const uint4 (&row)[D / 8], float scale,
+                                            float* disp, float* conf) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(row);
+  __nv_bfloat162 mx = h[0];
+#pragma unroll
+  for (int j = 1; j < D / 2; ++j) mx = __hmax2(mx, h[j]);
+  const float m = fmaxf(__low2float(mx), __high2float(mx));
+  float sum = 0.0f, wsum = 0.0f;
+#pragma unroll
+  for (int j = 0; j < D / 2; ++j) {
+    const float2 f = __bfloat1622float2(h[j]);
+    const float e0 = exp2f((f.x - m) * kLog2e);
+    const float e1 = exp2f((f.y - m) * kLog2e);
+    sum += e0;
+    sum += e1;
+    wsum = fmaf(static_cast<float>(2 * j), e0, wsum);
+    wsum = fmaf(static_cast<float>(2 * j + 1), e1, wsum);
+  }
+  *disp = (wsum / sum) * scale;
+  *conf = 1.0f / sum;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+soft_argmin_vector_kernel(const __nv_bfloat16* __restrict__ logits,
+                          float* __restrict__ disp, float* __restrict__ conf,
+                          long long N, float scale) {
+  static_assert(D % 8 == 0, "a row must be whole 16-byte units");
+  constexpr int kUnits = D / 8;                    // 16-byte loads a pixel
+  const long long n = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (n >= N) return;
+  const uint4* src = reinterpret_cast<const uint4*>(logits) + n * kUnits;
+  uint4 row[kUnits];
+#pragma unroll
+  for (int u = 0; u < kUnits; ++u) row[u] = __ldg(src + u);
+  pixel_stats<D>(row, scale, disp + n, conf + n);
+}
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 template <typename T>
-__global__ void soft_argmin_kernel(const T* __restrict__ logits,
-                                   float* __restrict__ disp,
-                                   float* __restrict__ conf,
-                                   long long N, int D, float scale) {
+__global__ void soft_argmin_generic_kernel(const T* __restrict__ logits,
+                                           float* __restrict__ disp,
+                                           float* __restrict__ conf,
+                                           long long N, int D, float scale) {
   const long long n = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (n >= N) return;
   const T* l = logits + n * D;
@@ -52,20 +110,32 @@ __global__ void soft_argmin_kernel(const T* __restrict__ logits,
 
 }  // namespace
 
+// vector != 0 selects the D=24 bf16 kernel, which needs 16-byte aligned
+// logits; the wrapper decides, and this returns cudaErrorInvalidValue if
+// the logits do not fit it.
 extern "C" int hst_soft_argmin(const void* logits, void* disp, void* conf, int N,
-                               int D, float scale, int is_bf16, void* stream) {
+                               int D, float scale, int is_bf16, int vector, void* stream) {
   if (N <= 0 || D <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = 256;
-  const unsigned blocks = static_cast<unsigned>((static_cast<long long>(N) + threads - 1) / threads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    soft_argmin_kernel<__nv_bfloat16><<<blocks, threads, 0, s>>>(
+  const long long n = N;
+  const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
+  if (vector) {
+    if (!is_bf16 || D != kVectorD || (reinterpret_cast<uintptr_t>(logits) & 15)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    soft_argmin_vector_kernel<kVectorD><<<blocks, kThreads, 0, s>>>(
         static_cast<const __nv_bfloat16*>(logits), static_cast<float*>(disp),
-        static_cast<float*>(conf), N, D, scale);
+        static_cast<float*>(conf), n, scale);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (is_bf16) {
+    soft_argmin_generic_kernel<__nv_bfloat16><<<blocks, kThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(logits), static_cast<float*>(disp),
+        static_cast<float*>(conf), n, D, scale);
   } else {
-    soft_argmin_kernel<float><<<blocks, threads, 0, s>>>(
+    soft_argmin_generic_kernel<float><<<blocks, kThreads, 0, s>>>(
         static_cast<const float*>(logits), static_cast<float*>(disp),
-        static_cast<float*>(conf), N, D, scale);
+        static_cast<float*>(conf), n, D, scale);
   }
   return static_cast<int>(cudaGetLastError());
 }

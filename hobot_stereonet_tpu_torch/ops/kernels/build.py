@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
-All sources in ``hobot_stereonet_tpu_torch/csrc/*.cu`` compile in ONE
-``nvcc`` call into ``build/kernels/libhst_kernels.so`` (under the checkout
-root) the first time a kernel is launched, and again whenever a source's
-hash changes.  Each source exports ``extern "C"`` functions that take raw
+Each source in ``hobot_stereonet_tpu_torch/csrc/*.cu`` compiles in its own
+``nvcc`` process, all started together, and one more ``nvcc`` links the
+objects into ``build/kernels/libhst_kernels.so`` (under the checkout root).
+That happens the first time a kernel is launched, and again whenever a
+source's hash changes.  Each source exports ``extern "C"`` functions that take raw
 pointers, sizes and a ``cudaStream_t`` and return ``cudaGetLastError()``;
 they are bound here with ``ctypes``.  No PyTorch headers are compiled, so
 the build takes seconds.
@@ -26,7 +27,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 LIB_NAME = "libhst_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 BUILD_TIMEOUT_S = 600
 
@@ -42,10 +43,10 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # src, dst, B, H, W, stream
     "hst_nv12_ingest": (_P, _P, _I, _I, _I, _P),
-    # fl, fr, out, B, H, W, C, D, is_bf16, stream
-    "hst_correlation": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # logits, disp, conf, N, D, scale, is_bf16, stream
-    "hst_soft_argmin": (_P, _P, _P, _I, _I, _F, _I, _P),
+    # fl, fr, out, B, H, W, C, D, divisor, is_bf16, stream
+    "hst_correlation": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
+    # logits, disp, conf, N, D, scale, is_bf16, vector, stream
+    "hst_soft_argmin": (_P, _P, _P, _I, _I, _F, _I, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -79,6 +80,23 @@ def _nvcc() -> str:
     return found
 
 
+def _run(cmds: list) -> list:
+    """Run the commands at once; return (cmd, returncode, output) for each."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True)) for cmd in cmds]
+    results = []
+    try:
+        for cmd, proc in procs:
+            out, _ = proc.communicate(timeout=BUILD_TIMEOUT_S)
+            results.append((cmd, proc.returncode, out))
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return results
+
+
 def build() -> Path:
     """Compile the kernels if the library is missing or out of date.
 
@@ -92,22 +110,31 @@ def build() -> Path:
     if lib_path.is_file() and stamp.is_file() and stamp.read_text().strip() == digest:
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f".{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    nvcc, pid = _nvcc(), os.getpid()
+    objs = [BUILD_DIR / f".{src.stem}.{pid}.o" for src in sources()]
+    tmp = BUILD_DIR / f".{LIB_NAME}.{pid}.tmp"
     t0 = time.monotonic()
-    proc = subprocess.run(cmd, capture_output=True, text=True,
-                          timeout=BUILD_TIMEOUT_S)
-    wall = time.monotonic() - t0
-    (BUILD_DIR / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    try:
+        steps = [_run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                       for src, obj in zip(sources(), objs)])]
+        if all(rc == 0 for _, rc, _ in steps[0]):
+            steps.append(_run([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]]))
+        wall = time.monotonic() - t0
+        results = [r for step in steps for r in step]
+        (BUILD_DIR / "build.log").write_text(
+            "".join(" ".join(cmd) + "\n" + out for cmd, _, out in results))
+        failed = [(cmd, rc, out) for cmd, rc, out in results if rc != 0]
+        if failed:
+            cmd, rc, out = failed[0]
+            raise RuntimeError(f"nvcc failed ({rc}) after {wall:.1f} s: "
+                               f"{' '.join(cmd)}\n{out[-4000:]}")
+        os.replace(tmp, lib_path)
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) after {wall:.1f} s:\n"
-            f"{proc.stderr[-4000:]}")
-    os.replace(tmp, lib_path)
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     stamp.write_text(digest + "\n")
-    print(f"[kernels] built {lib_path.name} from {len(sources())} sources "
+    print(f"[kernels] built {lib_path.name} from {len(objs)} sources "
           f"in {wall:.2f} s", flush=True)
     return lib_path
 

@@ -16,6 +16,7 @@ from . import build
 
 CORRELATION = "correlation"
 SOFT_ARGMIN = "soft_argmin"
+SOFT_ARGMIN_VECTOR_D = 24     # D of the one-pass kernel (the flagship's coarse D)
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -32,26 +33,84 @@ def _check_features(feat_l: torch.Tensor, feat_r: torch.Tensor) -> None:
         raise ValueError(f"{CORRELATION}: features on {feat_l.device} and {feat_r.device}")
 
 
+def correlation_divisor(c: int, dtype: torch.dtype) -> float:
+    """``sqrt(C)`` as the reference divides by it: the float32 square root
+    rounded to the features' dtype (5.65625 for C = 32 in bf16)."""
+    return float(torch.tensor(math.sqrt(c), dtype=torch.float32).to(dtype))
+
+
+def _correlation_plain(feat_l: torch.Tensor, feat_r: torch.Tensor, num_disparities: int,
+                       round_gram) -> torch.Tensor:
+    _check_features(feat_l, feat_r)
+    w, c = feat_l.shape[2], feat_l.shape[3]
+    dt = feat_l.dtype
+    fl, fr = feat_l.float(), feat_r.float()
+    divisor = correlation_divisor(c, dt)
+    out = fl.new_zeros(fl.shape[:3] + (num_disparities,))
+    for d in range(min(num_disparities, w)):
+        gram = (fl[:, :, d:] * fr[:, :, : w - d]).sum(-1)
+        out[:, :, d:, d] = round_gram(gram).float() / divisor
+    return out.to(dt)
+
+
 def correlation_volume_plain(feat_l: torch.Tensor, feat_r: torch.Tensor,
                              num_disparities: int) -> torch.Tensor:
     """[B,H,W,C] x2 -> [B,H,W,D] with ``out[..., x, d] = <fl[x], fr[x-d]> / sqrt(C)``,
-    zero where ``x < d``.  Accumulates in f32, rounds once to the input type."""
-    _check_features(feat_l, feat_r)
-    w, c = feat_l.shape[2], feat_l.shape[3]
-    fl, fr = feat_l.float(), feat_r.float()
-    scale = 1.0 / math.sqrt(c)
-    out = fl.new_zeros(fl.shape[:3] + (num_disparities,))
-    for d in range(min(num_disparities, w)):
-        out[:, :, d:, d] = (fl[:, :, d:] * fr[:, :, : w - d]).sum(-1) * scale
-    return out.to(feat_l.dtype)
+    zero where ``x < d``.
+
+    Rounds as ``build_correlation_volume`` in the JAX package does: the
+    product sums in f32 and is rounded to the features' dtype, then divided
+    by :func:`correlation_divisor` and rounded again.
+    """
+    return _correlation_plain(feat_l, feat_r, num_disparities,
+                              lambda gram: gram.to(feat_l.dtype))
+
+
+def correlation_gram_band(feat_l: torch.Tensor, feat_r: torch.Tensor,
+                          num_disparities: int):
+    """(lo, hi): bf16 volumes from :func:`correlation_volume_plain`'s
+    arithmetic with each rounded Gram value moved one representable bf16
+    step down and up.
+
+    A kernel that sums the Gram value in another f32 order and then rounds
+    as the reference does lands in ``[lo, hi]`` unless the sum is near zero
+    (the division and the rounding after it are monotone).  One Gram step
+    can become two steps of the output: the division by 5.65625 maps one
+    step to 0.7 to 1.4 steps of the quotient.
+    """
+    if feat_l.dtype != torch.bfloat16:
+        raise TypeError(f"{CORRELATION}: the Gram band is defined for bf16 features")
+    return tuple(_correlation_plain(feat_l, feat_r, num_disparities,
+                                    lambda gram, s=step: bf16_step(gram.bfloat16(), s))
+                 for step in (-1, 1))
+
+
+def _bf16_ordinal(t: torch.Tensor) -> torch.Tensor:
+    """bf16 -> int32 that counts representable values (+0 and -0 are 0)."""
+    i = t.contiguous().view(torch.int16).int()
+    return torch.where(i < 0, -(i & 0x7FFF), i)
+
+
+def bf16_ulp_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Representable bf16 steps between two bf16 tensors, elementwise (int32;
+    +0 and -0 count as one value).  The kernel checks measure with it."""
+    return (_bf16_ordinal(a) - _bf16_ordinal(b)).abs()
+
+
+def bf16_step(t: torch.Tensor, steps: int) -> torch.Tensor:
+    """``t`` (bf16) moved ``steps`` representable values up (or down if < 0)."""
+    o = _bf16_ordinal(t) + steps
+    bits = torch.where(o < 0, (-o) | 0x8000, o)
+    return torch.where(bits >= 0x8000, bits - 0x10000, bits).to(torch.int16).view(torch.bfloat16)
 
 
 def correlation_volume(feat_l: torch.Tensor, feat_r: torch.Tensor,
                        num_disparities: int) -> torch.Tensor:
     """Channel-last correlation volume [B,H,W,D] in the features' dtype.
 
-    CUDA tensors go through ``csrc/correlation.cu``; CPU tensors through
-    :func:`correlation_volume_plain`.
+    CUDA tensors go through ``csrc/correlation.cu``: bf16 on the tensor
+    cores (C a multiple of 16 up to 256, 16-byte aligned maps), f32 in
+    full f32.  CPU tensors go through :func:`correlation_volume_plain`.
     """
     if feat_l.device.type == "cpu":
         return correlation_volume_plain(feat_l, feat_r, num_disparities)
@@ -63,11 +122,17 @@ def correlation_volume(feat_l: torch.Tensor, feat_r: torch.Tensor,
     if num_disparities <= 0:
         raise ValueError(f"{CORRELATION}: num_disparities must be positive")
     b, h, w, c = feat_l.shape
+    is_bf16 = feat_l.dtype == torch.bfloat16
+    if is_bf16 and (c % 16 or c > 256):
+        raise ValueError(f"{CORRELATION}: bf16 features need C % 16 == 0 and C <= 256 "
+                         f"for the tensor-core kernel, got C = {c}")
+    if is_bf16 and (feat_l.data_ptr() % 16 or feat_r.data_ptr() % 16):
+        raise ValueError(f"{CORRELATION}: bf16 features must start 16-byte aligned")
     out = torch.empty((b, h, w, num_disparities), dtype=feat_l.dtype,
                       device=feat_l.device)
     err = build.library().hst_correlation(
         feat_l.data_ptr(), feat_r.data_ptr(), out.data_ptr(), b, h, w, c,
-        num_disparities, int(feat_l.dtype == torch.bfloat16),
+        num_disparities, correlation_divisor(c, feat_l.dtype), int(is_bf16),
         build.stream_handle(feat_l))
     build.check(CORRELATION, err)
     build.launch_counts[CORRELATION] += 1
@@ -93,11 +158,20 @@ def soft_argmin_confidence_plain(logits: torch.Tensor, scale: float = 1.0):
     return (p * d).sum(-1) * scale, p.amax(-1)
 
 
+def uses_vector_kernel(logits: torch.Tensor) -> bool:
+    """Whether CUDA logits take the one-pass 16-byte-load kernel (bf16,
+    D = ``SOFT_ARGMIN_VECTOR_D``, 16-byte aligned rows); others take the
+    generic kernel."""
+    return (logits.dtype == torch.bfloat16 and logits.shape[-1] == SOFT_ARGMIN_VECTOR_D
+            and logits.data_ptr() % 16 == 0)
+
+
 def soft_argmin_confidence(logits: torch.Tensor, scale: float = 1.0):
     """Fused soft-argmin disparity x ``scale`` and peak-probability confidence.
 
-    CUDA tensors go through ``csrc/soft_argmin.cu``; CPU tensors through
-    :func:`soft_argmin_confidence_plain`.
+    CUDA tensors go through ``csrc/soft_argmin.cu`` (its D = 24 bf16 kernel
+    where :func:`uses_vector_kernel`, else its generic kernel); CPU tensors
+    through :func:`soft_argmin_confidence_plain`.
     """
     if logits.device.type == "cpu":
         return soft_argmin_confidence_plain(logits, scale)
@@ -112,7 +186,7 @@ def soft_argmin_confidence(logits: torch.Tensor, scale: float = 1.0):
     err = build.library().hst_soft_argmin(
         logits.data_ptr(), disp.data_ptr(), conf.data_ptr(), b * h * w, d,
         float(scale), int(logits.dtype == torch.bfloat16),
-        build.stream_handle(logits))
+        int(uses_vector_kernel(logits)), build.stream_handle(logits))
     build.check(SOFT_ARGMIN, err)
     build.launch_counts[SOFT_ARGMIN] += 1
     return disp, conf

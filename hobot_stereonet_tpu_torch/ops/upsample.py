@@ -18,11 +18,15 @@ def convex_upsample(disp: torch.Tensor, mask_logits: torch.Tensor, k: int) -> to
     returns      [B, h*k, w*k] float32
 
     Each fine pixel is a softmax-weighted combination of the zero-padded 3x3
-    coarse neighbourhood.  The softmax runs in the mask's dtype, as in the
-    reference; the weighted sum runs in float32.
+    coarse neighbourhood.  The softmax runs in the mask's dtype and rounds
+    where ``jax.nn.softmax`` does: after ``x - max``, after ``exp``, after
+    the sum (taken in float32) and after the division.  The weighted sum
+    runs in float32.
     """
     b, h, w = disp.shape
-    m = torch.softmax(mask_logits.reshape(b, h, w, 9, k * k), dim=3)
+    x = mask_logits.reshape(b, h, w, 9, k * k)
+    e = torch.exp(x - x.amax(3, keepdim=True))
+    m = e / e.float().sum(3, keepdim=True).to(e.dtype)
     dp = F.pad(disp.float(), (1, 1, 1, 1))
     neighborhood = torch.stack(
         [dp[:, i: i + h, j: j + w] for i in range(3) for j in range(3)], dim=3

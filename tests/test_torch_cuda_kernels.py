@@ -6,11 +6,16 @@ without JAX:
 
     python -m pytest -m cuda --noconftest tests/test_torch_cuda_kernels.py
 
-Tolerances: the ingest is exact; the correlation within 1 bf16 ulp
-(relative 2**-7) plus 1e-5 absolute in bf16 and 1e-5 in f32, with exact
-zeros in the margin (kernel and plain version sum in f32 in other orders,
-so a sum near zero can differ in its rounding far beyond its own size);
-soft-argmin at f32 rounding (rtol 1e-5).
+Tolerances: the ingest is exact.  The correlation in bf16: at least
+99.9 % of values bit-equal to the plain version, and every value within
+its Gram band (``correlation_gram_band``: the plain version with each
+bf16 Gram value one representable step down or up) plus 1e-5 absolute;
+in f32 within 1e-5; exact zeros in the margin.  The kernel and the plain
+version round at the same points but sum the f32 Gram value in other
+orders (the tensor cores in theirs), so a Gram value can land one step
+away, which the division by bf16(sqrt C) and the second rounding carry
+to up to two steps of the output; a sum near zero can differ in its
+rounding far beyond its own size.  Soft-argmin at f32 rounding (rtol 1e-5).
 """
 
 import numpy as np
@@ -19,10 +24,12 @@ import torch
 
 from hobot_stereonet_tpu_torch.ops.kernels import build
 from hobot_stereonet_tpu_torch.ops.kernels.correlation import (
+    correlation_gram_band,
     correlation_volume,
     correlation_volume_plain,
     soft_argmin_confidence,
     soft_argmin_confidence_plain,
+    uses_vector_kernel,
 )
 from hobot_stereonet_tpu_torch.ops.kernels.preprocess_kernel import (
     nv12_sbs_preprocess,
@@ -52,35 +59,75 @@ def test_ingest_kernel_exact(device, b, h, w):
 
 @pytest.mark.parametrize("b,h,w,c,d,dtype", [
     (2, 3, 40, 8, 5, torch.float32),
-    (1, 2, 33, 32, 24, torch.bfloat16),
+    (4, 24, 33, 32, 24, torch.bfloat16),
     (1, 2, 20, 16, 40, torch.float32),
-    (8, 90, 160, 32, 24, torch.bfloat16),
+    (8, 90, 160, 32, 24, torch.bfloat16),      # the main path at B = 8
+    (4, 24, 17, 32, 24, torch.bfloat16),       # W < D, a masked tail tile
+    (4, 24, 17, 32, 24, torch.float32),
+    (4, 24, 40, 32, 6, torch.bfloat16),
+    (4, 24, 40, 32, 6, torch.float32),
+    (2, 24, 160, 32, 6, torch.bfloat16),
+    (2, 24, 160, 32, 24, torch.float32),
+    (4, 24, 40, 16, 40, torch.bfloat16),       # D > 25: two chunks of n8 tiles
+    (2, 16, 300, 64, 24, torch.bfloat16),      # two column tiles a row
 ])
 def test_correlation_kernel(device, b, h, w, c, d, dtype):
     rng = np.random.default_rng(1)
     fl = torch.from_numpy(rng.standard_normal((b, h, w, c)).astype(np.float32)).to(dtype)
     fr = torch.from_numpy(rng.standard_normal((b, h, w, c)).astype(np.float32)).to(dtype)
+    n0 = build.launch_counts["correlation"]
     got = correlation_volume(fl.to(device), fr.to(device), d)
     torch.cuda.synchronize()
+    assert build.launch_counts["correlation"] == n0 + 1
     want = correlation_volume_plain(fl.to(device), fr.to(device), d)
-    got, want = got.float().cpu().numpy(), want.float().cpu().numpy()
     if dtype == torch.bfloat16:
-        np.testing.assert_allclose(got, want, rtol=2.0 ** -7, atol=1e-5)
-    else:
+        assert (got == want).float().mean().item() >= 0.999
+        lo, hi = correlation_gram_band(fl.to(device), fr.to(device), d)
+        assert bool(((got.float() >= lo.float() - 1e-5) & (got.float() <= hi.float() + 1e-5)).all())
+    got, want = got.float().cpu().numpy(), want.float().cpu().numpy()
+    if dtype == torch.float32:
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
     for k in range(min(d, w)):
         np.testing.assert_array_equal(got[:, :, :k, k], 0.0)
+
+
+def test_correlation_kernel_refuses_what_the_tensor_cores_do_not_take(device):
+    for c in (24, 272):
+        fl = torch.zeros((1, 2, 16, c), dtype=torch.bfloat16, device=device)
+        with pytest.raises(ValueError, match="C % 16"):
+            correlation_volume(fl, fl, 4)
+    flat = torch.zeros(1 + 2 * 16 * 32, dtype=torch.bfloat16, device=device)
+    with pytest.raises(ValueError, match="aligned"):
+        correlation_volume(flat[1:].view(1, 2, 16, 32), flat[1:].view(1, 2, 16, 32), 4)
 
 
 @pytest.mark.parametrize("b,h,w,d,dtype", [
     (2, 3, 5, 24, torch.bfloat16),
     (1, 2, 3, 7, torch.float32),
     (8, 90, 160, 24, torch.bfloat16),
+    (2, 3, 5, 7, torch.bfloat16),
+    (32, 90, 160, 24, torch.bfloat16),
 ])
 def test_soft_argmin_kernel(device, b, h, w, d, dtype):
     rng = np.random.default_rng(2)
     logits = torch.from_numpy(
         (3.0 * rng.standard_normal((b, h, w, d))).astype(np.float32)).to(dtype).to(device)
+    assert uses_vector_kernel(logits) == (dtype == torch.bfloat16 and d == 24)
+    disp, conf = soft_argmin_confidence(logits, scale=8.0)
+    torch.cuda.synchronize()
+    want_d, want_c = soft_argmin_confidence_plain(logits, scale=8.0)
+    torch.testing.assert_close(disp, want_d, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(conf, want_c, rtol=1e-5, atol=1e-6)
+
+
+def test_soft_argmin_kernel_on_rows_not_16_byte_aligned(device):
+    """A D = 24 bf16 view that starts one element in takes the generic kernel."""
+    rng = np.random.default_rng(3)
+    shape = (2, 9, 13, 24)
+    flat = torch.from_numpy((3.0 * rng.standard_normal(1 + int(np.prod(shape))))
+                            .astype(np.float32)).bfloat16().to(device)
+    logits = flat[1:].view(shape)
+    assert logits.is_contiguous() and not uses_vector_kernel(logits)
     disp, conf = soft_argmin_confidence(logits, scale=8.0)
     torch.cuda.synchronize()
     want_d, want_c = soft_argmin_confidence_plain(logits, scale=8.0)

@@ -4,11 +4,11 @@ the JAX package: its jnp paths and its Pallas kernels in interpret mode.
 Tolerances:
   * NV12 ingest: exact (every value is k/128 - 1, exact in bf16 and f32).
   * Correlation, f32: 1e-5 (sums of C products in another order).
-    bf16: within 1 bf16 ulp (relative 2**-7) plus 1e-5 absolute.  The port
-    accumulates in f32 and rounds once; the reference rounds the Gram
-    matrix to bf16 before dividing by sqrt(C) and rounds again.  The
-    absolute term covers sums near zero, whose f32 rounding depends on the
-    order of summation.  The margin x < d is exactly 0.
+    bf16: the port rounds where the reference does (the f32 Gram value to
+    bf16, then the quotient by bf16(sqrt C) to bf16), so at least 99.9 %
+    of the values are bit-equal to it and every value is within 1 bf16 ulp
+    (one representable step): only an f32 summation-order tie can move one.
+    The margin x < d is exactly 0.
   * Soft-argmin and confidence: f32 rounding (rtol 1e-5; atol 1e-4 px on
     disparities up to 8 * (D - 1)).
 """
@@ -36,10 +36,16 @@ from hobot_stereonet_tpu_torch.ops import soft_argmin as sa
 from hobot_stereonet_tpu_torch.ops.cost_volume import build_correlation_volume
 from hobot_stereonet_tpu_torch.ops.kernels import build
 from hobot_stereonet_tpu_torch.ops.kernels.correlation import (
+    SOFT_ARGMIN_VECTOR_D,
+    bf16_step,
+    bf16_ulp_distance,
+    correlation_divisor,
+    correlation_gram_band,
     correlation_volume,
     correlation_volume_plain,
     soft_argmin_confidence,
     soft_argmin_confidence_plain,
+    uses_vector_kernel,
 )
 from hobot_stereonet_tpu_torch.ops.kernels.preprocess_kernel import (
     nv12_sbs_preprocess,
@@ -138,19 +144,77 @@ def test_correlation_zero_margin():
     np.testing.assert_allclose(out, pallas, rtol=1e-6)
 
 
-def test_correlation_bf16_within_one_ulp_of_jax(rng):
-    b, h, w, c, d = 2, 6, 48, 32, 24
+@pytest.mark.parametrize("b,h,w,c,d", [
+    (2, 8, 160, 32, 24),        # the flagship's row width, C and D
+    (2, 6, 48, 32, 24),
+    (2, 16, 17, 32, 24),        # W < D
+    (2, 16, 40, 16, 6),
+])
+def test_correlation_bf16_within_one_ulp_of_jax(rng, b, h, w, c, d):
     fl = torch.from_numpy(rng.standard_normal((b, h, w, c)).astype(np.float32)).bfloat16()
     fr = torch.from_numpy(rng.standard_normal((b, h, w, c)).astype(np.float32)).bfloat16()
     port = correlation_volume_plain(fl, fr, d)
     assert port.dtype == torch.bfloat16
     jl = jnp.asarray(fl.float().numpy()).astype(jnp.bfloat16)
     jr = jnp.asarray(fr.float().numpy()).astype(jnp.bfloat16)
-    ref = np.transpose(np.asarray(j_corr(jl, jr, d)).astype(np.float32), (0, 2, 3, 1))
+    ref = torch.from_numpy(np.transpose(np.asarray(j_corr(jl, jr, d)).astype(np.float32),
+                                        (0, 2, 3, 1))).bfloat16()
+    assert (port == ref).float().mean().item() >= 0.999
+    assert bf16_ulp_distance(port, ref).max().item() <= 1
     got = port.float().numpy()
-    np.testing.assert_allclose(got, ref, rtol=2.0 ** -7, atol=1e-5)
-    for k in range(d):
+    for k in range(min(d, w)):
         np.testing.assert_array_equal(got[:, :, :k, k], 0.0)
+
+
+def test_correlation_divides_by_sqrt_c_rounded_to_the_dtype():
+    assert correlation_divisor(32, torch.bfloat16) == 5.65625
+    assert correlation_divisor(32, torch.float32) == np.float32(np.sqrt(np.float32(32)))
+    # Two roundings, as the reference: bf16(bf16(g) / 5.65625), not bf16(g / sqrt(32)).
+    fl = torch.zeros((1, 1, 1, 32), dtype=torch.bfloat16)
+    fr = torch.zeros_like(fl)
+    fl[..., 0], fr[..., 0] = 0.5078125, 0.58984375
+    assert correlation_volume_plain(fl, fr, 1).item() == 0.052734375
+    assert torch.tensor(0.5078125 * 0.58984375 / np.sqrt(32)).bfloat16().item() == 0.052978515625
+
+
+def test_reciprocal_multiply_rounds_as_the_true_division():
+    """The bf16 kernel multiplies by 1/bf16(sqrt C) where the reference
+    divides by bf16(sqrt C); after the rounding to bf16 the two agree for
+    every finite bf16 Gram value and every C up to 512."""
+    g = torch.arange(-(2 ** 15), 2 ** 15, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    g = g[torch.isfinite(g)].float()
+    for c in range(1, 513):
+        divisor = torch.tensor(correlation_divisor(c, torch.bfloat16))
+        reciprocal = 1.0 / divisor
+        assert torch.equal((g / divisor).bfloat16(), (g * reciprocal).bfloat16()), c
+
+
+def test_bf16_ulp_distance_counts_representable_steps():
+    a = torch.tensor([1.0, 1.0, -1.0, 0.0, -0.0, 2.0 ** -130], dtype=torch.bfloat16)
+    b = torch.tensor([1.0, 1.0078125, -1.0078125, -0.0, 2.0 ** -133, -(2.0 ** -130)],
+                     dtype=torch.bfloat16)
+    assert bf16_ulp_distance(a, b).tolist() == [0, 1, 1, 0, 1, 16]
+    for steps in (-3, -1, 1, 2):
+        moved = bf16_step(a, steps)
+        assert bf16_ulp_distance(a, moved).tolist() == [abs(steps)] * 6
+        assert bool(((moved.float() > a.float()) == (steps > 0)).all())
+
+
+def test_correlation_gram_band_brackets_the_plain_version(rng):
+    b, h, w, c, d = 2, 4, 40, 32, 24
+    fl = torch.from_numpy(rng.standard_normal((b, h, w, c)).astype(np.float32)).bfloat16()
+    fr = torch.from_numpy(rng.standard_normal((b, h, w, c)).astype(np.float32)).bfloat16()
+    lo, hi = correlation_gram_band(fl, fr, d)
+    plain = correlation_volume_plain(fl, fr, d)
+    assert bool((lo <= plain).all() and (plain <= hi).all())
+    margin = torch.zeros(plain.shape, dtype=torch.bool)
+    for k in range(d):
+        margin[:, :, :k, k] = True
+    assert bool((lo[margin] == 0).all() and (hi[margin] == 0).all())
+    assert bool((lo[~margin] < hi[~margin]).all())
+    assert bf16_ulp_distance(lo, hi).max().item() <= 4
+    with pytest.raises(TypeError):
+        correlation_gram_band(fl.float(), fr.float(), d)
 
 
 def test_correlation_dispatch_and_checks(rng):
@@ -197,3 +261,15 @@ def test_soft_argmin_bf16_logits_compute_in_f32(rng):
     assert float(conf.min()) >= 1.0 / 24 - 1e-7 and float(conf.max()) <= 1.0
     with pytest.raises(ValueError):
         soft_argmin_confidence(logits[0], scale=8.0)
+
+
+def test_soft_argmin_kernel_choice():
+    """The one-pass kernel takes bf16 rows of D = 24 that start 16-byte aligned."""
+    flat = torch.zeros(1 + 2 * 3 * 4 * SOFT_ARGMIN_VECTOR_D, dtype=torch.bfloat16)
+    aligned = flat[:-1].view(2, 3, 4, SOFT_ARGMIN_VECTOR_D)
+    offset = flat[1:].view(2, 3, 4, SOFT_ARGMIN_VECTOR_D)
+    assert aligned.data_ptr() % 16 == 0 and offset.is_contiguous()
+    assert uses_vector_kernel(aligned)
+    assert not uses_vector_kernel(offset)
+    assert not uses_vector_kernel(aligned.float())
+    assert not uses_vector_kernel(torch.zeros((1, 2, 3, 7), dtype=torch.bfloat16))

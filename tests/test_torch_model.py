@@ -6,10 +6,16 @@ Tolerances:
     through the layers: 1e-4 for single blocks, 1e-3 px for the network's
     disparity and 1e-4 for its confidence.
   * The whole network in bfloat16: both round activations to bf16 at the
-    same points, but cuDNN/oneDNN and XLA accumulate differently and the
-    port's correlation rounds once where the reference rounds twice, so
-    single logits can differ by a bf16 ulp.  The final disparity must agree
-    to a median |error| of 0.05 px and a maximum of 1 px.
+    same points (the correlation volume and the convex mask's softmax
+    included), but cuDNN/oneDNN and XLA accumulate conv products
+    differently, so single activations can differ by a bf16 ulp, and the
+    x8 convex upsample carries a coarse difference to a fine pixel near an
+    edge.  The final disparity must agree to a median |error| of 0.03 px
+    and a maximum of 1 px (measured 0.017 and 0.81 px on the CPU), the
+    confidence to 0.03 (measured 0.012).
+  * ``convex_upsample`` with a bf16 mask: its softmax rounds where
+    ``jax.nn.softmax`` does, so the weights are equal and the f32 weighted
+    sum agrees to f32 rounding (1e-5).
 """
 
 import jax
@@ -100,9 +106,10 @@ def test_feature_tower_with_flagship_weights(rng, flagship):
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("hw", [(5, 7), (23, 29)])
 @pytest.mark.parametrize("mask_dtype", [np.float32, jnp.bfloat16])
-def test_convex_upsample(rng, mask_dtype):
-    b, h, w, k = 2, 5, 7, 8
+def test_convex_upsample(rng, mask_dtype, hw):
+    (b, k), (h, w) = (2, 8), hw
     disp = (10 * rng.random((b, h, w))).astype(np.float32)
     mask = rng.standard_normal((b, h, w, 9 * k * k)).astype(np.float32)
     jmask = jnp.asarray(mask).astype(mask_dtype)
@@ -112,8 +119,7 @@ def test_convex_upsample(rng, mask_dtype):
         tmask = tmask.bfloat16()
     got = convex_upsample(torch.from_numpy(disp), tmask, k).numpy()
     assert got.shape == (b, h * k, w * k) and got.dtype == np.float32
-    tol = 1e-5 if mask_dtype is np.float32 else 0.05   # bf16 softmax: ~2**-8 of 10 px
-    np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
 def _inputs(rng, b=2, h=64, w=128):
@@ -160,6 +166,6 @@ def test_fast_stereonet_bf16_matches_jax_in_px(rng, flagship):
         out = _port_net(flagship, torch.bfloat16)(torch.from_numpy(left), torch.from_numpy(right))
     err = np.abs(out["disparity"].numpy() - np.asarray(jout["disparity"]))
     assert out["disparity"].dtype == torch.float32
-    assert np.median(err) <= 0.05 and err.max() <= 1.0, (np.median(err), err.max())
+    assert np.median(err) <= 0.03 and err.max() <= 1.0, (np.median(err), err.max())
     conf_err = np.abs(out["confidence"].numpy() - np.asarray(jout["confidence"]))
-    assert conf_err.max() <= 0.05, conf_err.max()
+    assert conf_err.max() <= 0.03, conf_err.max()
