@@ -24,7 +24,30 @@ Phases, each printed with its elapsed seconds:
      reset just before and read just after.  The frames are queued before
      the workers start, so dispatch serves them as one bucket of 32; the
      streamed results must then equal, bit for bit and frame by frame, one
-     synchronous pipeline call on the same 32 frames.
+     synchronous pipeline call on the same 32 frames;
+  6. trained weights: the flagship's weights from
+     ``hobot_stereonet_tpu_torch/reference`` (numpy ``.npz`` files) on
+     the two 256x512 held-out scenes in float32 (max |error| <= 1e-3 px
+     against the stored JAX output) and in bf16, and on the 720p frame in
+     bf16 (median, p99.99 and max |error|, pixels over 1 px, held to the
+     bounds the CPU tests hold the port to);
+  7. held-out accuracy: ``evaluate_dataset`` over the 120 held-out scenes
+     in bf16 on the card; the mean EPE must lie in 0.8689 +- 0.0754 px
+     (``accuracy_stats.json``), printed with D1 and the paired per-scene
+     difference from the stored JAX EPEs;
+  8. engine, benchmark surface: ``measure_engine_fps`` at 1280x720 with
+     the flagship config and weights, frames from a ``DeviceFrameRing`` and
+     ``fetch_results=False``, at batch 1 and 32, with and without
+     ``stage_timing``; ring-fed results against a synchronous pipeline call,
+     ``device_microbatch=8`` against the whole batch of 32, and a frame in a
+     batch of 1 against the same frame in the batch of 32;
+  9. profile: one steady ring-fed batch of 32 under ``device_trace``
+     (``torch.profiler``): the device-busy share of the traced window and
+     the ten largest device ops.
+
+Phases 7 and 8 reset the kernels' launch counts just before they drive
+their path and fail if a kernel of it was not launched.  The held-out
+scenes are rendered on a host thread from the start, beside phases 2-6.
 
 Before the last line it prints one JSON object with each kernel's launches,
 error, times and bound at each batch; the last line is
@@ -57,6 +80,15 @@ BF16_FLOPS = 989e12             # H100 SXM bf16 on the tensor cores, dense
 BATCHES = (8, 32)               # batches of the kernel phase
 H, W = 720, 1280                # camera
 N_FRAMES = 32                   # frames the engine serves
+BENCH_BATCHES = {1: 24, 32: 4}  # batches measure_engine_fps runs, per dispatch batch
+# bf16 network against the stored JAX output, as the CPU tests hold it
+# (tests/test_torch_reference.py): median |error| <= 0.03 px, at most
+# 0.05 % of pixels over 1 px, none over 8 px (one coarse candidate).
+BF16_MEDIAN_PX, BF16_OVER_1PX, BF16_MAX_PX = 0.03, 5e-4, 8.0
+# device_microbatch=8 against the whole batch of 32 on the card: measured
+# max |diff| 1.907e-6 px, 99.8625 % bit-equal with ATen's GroupNorm
+# (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md, PR 6 review round).
+MICROBATCH_MAX_PX = 1e-4
 SPIN_CYCLES = 20_000_000        # about 10 ms of device time at H100 clocks
 
 
@@ -251,6 +283,65 @@ def kernel_phase(b, rng, flush, dev, h, w, c, d, scale, card) -> list:
     return rows
 
 
+def px_stats(got, want) -> dict:
+    """|got - want| in px: median, p99.99, max, and pixels over 1 px."""
+    import numpy as np
+
+    e = np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64))
+    return dict(median=float(np.median(e)), p9999=float(np.quantile(e, 0.9999)),
+                max=float(e.max()), over_1px=int((e > 1.0).sum()), n=int(e.size))
+
+
+def check_bf16(tag: str, st: dict) -> None:
+    ok = (st["median"] <= BF16_MEDIAN_PX and st["over_1px"] <= BF16_OVER_1PX * st["n"]
+          and st["max"] <= BF16_MAX_PX)
+    if not ok:
+        raise AssertionError(f"{tag}: {st} beyond median {BF16_MEDIAN_PX} px, "
+                             f"{BF16_OVER_1PX:.2%} over 1 px, max {BF16_MAX_PX} px")
+
+
+def on_path(names, fn):
+    """Run ``fn`` with the launch counts reset just before and read just after;
+    fail if a kernel in ``names`` was not launched.  Returns (fn's result, counts)."""
+    from hobot_stereonet_tpu_torch.ops.kernels import build
+
+    build.reset_launch_counts()
+    out = fn()
+    counts = dict(build.launch_counts)
+    missing = [n for n in names if counts.get(n, 0) <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on this path: {missing}; {counts}")
+    return out, counts
+
+
+def profile_summary(prof) -> tuple:
+    """From a ``torch.profiler`` run: (device-busy share of the traced
+    window, total device time in ms, the ten device kernels and copies with
+    the most device time as (name, ms, calls))."""
+    def on_device(e) -> bool:
+        return str(getattr(e, "device_type", "")).endswith("CUDA")
+
+    events = [e for e in prof.events() if e.time_range.end > e.time_range.start]
+    dev = sorted((e.time_range.start, e.time_range.end) for e in events if on_device(e))
+    if not dev:
+        return 0.0, 0.0, []
+    span = max(e.time_range.end for e in events) - min(e.time_range.start for e in events)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s0, e0 in dev:
+        if cur_e is None or s0 > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s0, e0
+        else:
+            cur_e = max(cur_e, e0)
+    busy += cur_e - cur_s
+    kernels = sorted((a for a in prof.key_averages() if on_device(a)),
+                     key=lambda a: a.device_time_total, reverse=True)
+    total = sum(a.device_time_total for a in kernels) / 1e3
+    return (busy / span if span > 0 else 0.0, total,
+            [(a.key, a.device_time_total / 1e3, a.count) for a in kernels[:10]])
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -262,12 +353,26 @@ def main() -> int:
         print(f"chip_smoke: the port's package is not beside {__file__}", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
-    from hobot_stereonet_tpu_torch.config import Config
+    from concurrent.futures import ThreadPoolExecutor
+
+    from hobot_stereonet_tpu_torch import reference
+    from hobot_stereonet_tpu_torch.config import Config, PreprocessConfig
+    from hobot_stereonet_tpu_torch.data.stream import DeviceFrameRing
     from hobot_stereonet_tpu_torch.models import FastStereoNet
+    from hobot_stereonet_tpu_torch.models.layers import cast_convs
     from hobot_stereonet_tpu_torch.ops import preprocess as pp
     from hobot_stereonet_tpu_torch.ops.kernels import build
+    from hobot_stereonet_tpu_torch.runtime.benchmark import measure_engine_fps
     from hobot_stereonet_tpu_torch.runtime.engine import Frame, StereoEngine
+    from hobot_stereonet_tpu_torch.runtime.evaluate import evaluate_dataset
     from hobot_stereonet_tpu_torch.runtime.weights import from_flax_params, random_flax_params
+    from hobot_stereonet_tpu_torch.utils.profiling import device_trace
+
+    # The held-out scenes render on a host thread while phases 2-6 run (the
+    # dataset keeps them); the thread ends with its work, also on a failure.
+    heldout = reference.heldout_dataset()
+    renderer = ThreadPoolExecutor(max_workers=1)
+    rendered = renderer.submit(lambda: [heldout[i] for i in range(len(heldout))])
 
     # 1. device ---------------------------------------------------------------
     kind = torch.cuda.get_device_name(0)
@@ -394,6 +499,155 @@ def main() -> int:
     phase(f"engine: {len(results)} frames of {W}x{H} in {wall:.3f} s = "
           f"{len(results) / wall:.2f} frames/s (smoke number, not a benchmark; "
           f"batches {batches}); launches {launches}; {card}")
+
+    del eng, results, ref, feed
+
+    # 6. trained weights --------------------------------------------------------
+    t = time.monotonic()
+    trained = reference.load_params()
+    stored = reference.load_outputs()
+    scenes = [heldout[i] for i in reference.SCENES]
+    yuv = PreprocessConfig(color_space="yuv")
+
+    def trained_net(dtype, device):
+        mcfg = dataclasses.replace(cfg.model, compute_dtype=dtype)
+        m = FastStereoNet(mcfg, device=device)
+        m.load_state_dict(from_flax_params(trained, mcfg))
+        return cast_convs(m, dtype).eval()
+
+    def run_scenes(net, device):
+        x = torch.cat([pp.rgb_pair_to_model_input(s.left, s.right, yuv, device) for s in scenes])
+        with torch.inference_mode():
+            o = net(*pp.split_model_input(x))
+        return o["disparity"].cpu().numpy(), o["confidence"].cpu().numpy()
+
+    d32, c32 = run_scenes(trained_net(torch.float32, dev), dev)
+    f32_err = float(np.abs(d32 - stored["f32_disparity"]).max())
+    f32_conf = float(np.abs(c32 - stored["f32_confidence"]).max())
+    if not (f32_err <= 1e-3 and f32_conf <= 1e-4):
+        raise AssertionError(f"trained f32 network vs JAX: disparity max |err| {f32_err} px "
+                             f"(limit 1e-3), confidence {f32_conf} (limit 1e-4)")
+    phase(f"trained: float32 network on the card vs JAX on 2 held-out scenes at 256x512: "
+          f"disparity max |err| {f32_err:.3g} px (limit 1e-3), confidence {f32_conf:.3g} "
+          f"(limit 1e-4); reference made with XLA_FLAGS={stored['xla_flags']}")
+    net16 = trained_net(torch.bfloat16, dev)
+    d16, c16 = run_scenes(net16, dev)
+    st = px_stats(d16, stored["bf16_disparity"])
+    check_bf16("trained bf16 scenes", st)
+    phase(f"trained: bf16 network on the card vs JAX on the 2 scenes: {st}; "
+          f"confidence max |err| {float(np.abs(c16 - stored['bf16_confidence']).max()):.3g}")
+    dcpu, _ = run_scenes(trained_net(torch.bfloat16, "cpu"), "cpu")
+    phase(f"trained: bf16 network on the card vs the port on the CPU, same scenes: "
+          f"{px_stats(d16, dcpu)}")
+    frame = torch.from_numpy(reference.frame_720p())[None].to(dev)
+    with torch.inference_mode():
+        x = pp.nv12_ingest(frame, H, 2 * W, yuv)
+        d720 = net16(*pp.split_model_input(x))["disparity"][0].cpu().numpy()
+    st = px_stats(d720, stored["bf16_720p_disparity"])
+    check_bf16("trained bf16 720p", st)
+    phase(f"trained: bf16 network on the card vs JAX on the 720p frame: {st} "
+          f"({time.monotonic() - t:.1f} s)")
+
+    # 7. held-out accuracy ------------------------------------------------------
+    t = time.monotonic()
+    rendered.result()
+    phase(f"accuracy: {len(heldout)} held-out scenes rendered on a host thread")
+    eval_cfg = dataclasses.replace(cfg, preprocess=yuv)
+    res, eval_launches = on_path(
+        ["correlation", "soft_argmin"],
+        lambda: evaluate_dataset(None, trained, heldout, eval_cfg, device=dev))
+    jax_epe = stored["heldout_epe"]
+    delta = np.asarray(res.per_frame_epe) - jax_epe
+    ci = 1.96 * delta.std(ddof=1) / np.sqrt(len(delta))
+    lo, hi = (reference.HELDOUT_EPE_PX - reference.HELDOUT_EPE_CI95_PX,
+              reference.HELDOUT_EPE_PX + reference.HELDOUT_EPE_CI95_PX)
+    phase(f"accuracy: bf16 on the card over {res.n_frames} held-out scenes: EPE {res.epe:.4f} px "
+          f"(must lie in [{lo:.4f}, {hi:.4f}]), D1 {res.d1_all:.4f}; paired per-scene "
+          f"EPE - JAX's: mean {delta.mean():+.4f} +- {ci:.4f} px (95 %), max |.| "
+          f"{np.abs(delta).max():.4f} (JAX mean {jax_epe.mean():.4f}, D1 "
+          f"{float(stored['heldout_d1']):.4f}); launches {eval_launches} "
+          f"({time.monotonic() - t:.1f} s)")
+    if not lo <= res.epe <= hi:
+        raise AssertionError(f"held-out EPE {res.epe} outside [{lo}, {hi}]")
+
+    # 8. engine, benchmark surface ----------------------------------------------
+    path = [r["name"] for r in rows if r["batch"] == BATCHES[0]]
+    for stage_timing in (False, True):
+        for b, nb in BENCH_BATCHES.items():
+            t = time.monotonic()
+            out, counts = on_path(path, lambda: measure_engine_fps(
+                params=trained, model_cfg=cfg.model, preprocess_cfg=yuv, batch=b,
+                n_batches=nb, stage_timing=stage_timing, ring_size=2, height=H, width=W))
+            phase(f"bench: measure_engine_fps batch {b}, stage_timing={stage_timing}: {out}; "
+                  f"launches {counts}; {card} ({time.monotonic() - t:.1f} s)")
+
+    t = time.monotonic()
+    ring = DeviceFrameRing(height=H, width=W, ring_size=4, seed=1, device=dev)
+    ecfg = dataclasses.replace(cfg, preprocess=yuv, engine=dataclasses.replace(
+        cfg.engine, fetch_results=False, drop_on_full=False))
+    eng = StereoEngine(ecfg, params=trained, emit_confidence=True)
+    eng.warmup(buckets=[N_FRAMES], ring=ring)
+
+    def serve_ring():
+        for f in ring.frames(N_FRAMES):
+            eng.feed(f)
+        eng.start(warmup=False)
+        eng.drain(timeout=120.0)
+        out = list(eng.results(timeout=0.5))
+        eng.stop()
+        return out
+
+    results, ring_launches = on_path(path, serve_ring)
+    slots = [i % ring.data.shape[0] for i in range(N_FRAMES)]
+    with torch.inference_mode():
+        want = eng.pipeline(ring.data[slots])
+    for r in results:
+        for name, got, w in (("disparity", r.disparity, want[0]),
+                             ("confidence", r.confidence, want[2])):
+            if not np.array_equal(np.asarray(got), w[r.index].cpu().numpy()):
+                raise AssertionError(f"frame {r.index}: ring-fed {name} differs from the "
+                                     "synchronous pipeline")
+    if len(results) != N_FRAMES or eng.metrics.dispatch_batch.n != 1 or eng.metrics.nan_dropped:
+        raise AssertionError(f"ring-fed run: {len(results)} results, "
+                             f"{eng.metrics.dispatch_batch.summary()}")
+    phase(f"engine: ring-fed, fetch_results=False: all {N_FRAMES} results equal the synchronous "
+          f"pipeline's bit for bit; launches {ring_launches}")
+    mb = StereoEngine(dataclasses.replace(ecfg, engine=dataclasses.replace(
+        ecfg.engine, device_microbatch=8)), params=trained)
+    with torch.inference_mode():
+        chunked = mb.pipeline(ring.data[slots])[0]
+        single = eng.pipeline(ring.data[slots[:1]])[0]
+    torch.cuda.synchronize()
+    whole = want[0]
+    micro = (float((chunked == whole).float().mean()), float((chunked - whole).abs().max()))
+    pad = px_stats(single[0].cpu().numpy(), whole[0].cpu().numpy())
+    pad["bit_equal"] = float((single[0] == whole[0]).float().mean())
+    phase(f"engine: device_microbatch=8 vs the whole batch of {N_FRAMES}: bit-equal share "
+          f"{micro[0]:.6f}, max |diff| {micro[1]:.4g} px (limit {MICROBATCH_MAX_PX}); frame 0 "
+          f"alone (a batch of 1) vs in the batch of {N_FRAMES}: {pad} "
+          f"({time.monotonic() - t:.1f} s)")
+    if micro[1] > MICROBATCH_MAX_PX:
+        raise AssertionError(f"device_microbatch=8 differs from the whole batch by {micro[1]} px")
+    check_bf16("a frame in a batch of 1 vs in a batch of 32", pad)
+
+    # 9. profile ----------------------------------------------------------------
+    t = time.monotonic()
+    log = ROOT / "build" / "profile"
+    for b in (1, N_FRAMES):
+        with device_trace(str(log / f"batch{b}")) as prof:
+            _, event = eng._launch((ring, slots[:b]))
+            eng._wait(event)
+        busy, total, top = profile_summary(prof)
+        if not top:
+            phase("profile: torch.profiler's key_averages() show no device time on this machine")
+            break
+        phase(f"profile: one ring-fed batch of {b} at {W}x{H}, dispatch to completion: device "
+              f"busy {100 * busy:.1f} % of the traced window, {total:.3f} ms of device time; "
+              f"the largest kernels and copies: {card}")
+        for name, ms, calls in top:
+            phase(f"profile:   {ms:9.3f} ms  {calls:5d} calls  {name[:110]}")
+    phase(f"profile: traces in {log} ({time.monotonic() - t:.1f} s)")
+    renderer.shutdown(wait=True)
 
     print(json.dumps({"kernels": [dict(
         name=r["name"], route=r["route"], source=r["source"], replaces=r["replaces"],

@@ -11,7 +11,11 @@ Where the reference's numerics differ from PyTorch's defaults:
     pads (1, 2), not (2, 2);
   * GroupNorm has eps 1e-6 and computes in float32 with float32 parameters,
     whatever the activation dtype, rounding its output to that dtype once;
-  * LeakyReLU has slope 0.2, and ``ResBlock2D`` applies it after the add.
+  * LeakyReLU has slope 0.2 in the activation's dtype (bf16(0.2) =
+    0.2001953125 in bfloat16, as flax multiplies), and ``ResBlock2D``
+    applies it after the add;
+  * a conv rounds its sum to the compute dtype and then adds the bias in
+    that dtype, as flax's ``nn.Conv`` does: two roundings, not one.
 """
 
 from __future__ import annotations
@@ -51,13 +55,23 @@ class SameConv2d(nn.Conv2d):
         ph = _same_pads(x.shape[2], kh, self.stride[0])
         pw = _same_pads(x.shape[3], kw, self.stride[1])
         if ph[0] == ph[1] and pw[0] == pw[1]:
-            return F.conv2d(x, self.weight, self.bias, self.stride, (ph[0], pw[0]))
-        x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
-        return F.conv2d(x, self.weight, self.bias, self.stride)
+            y = F.conv2d(x, self.weight, None, self.stride, (ph[0], pw[0]))
+        else:
+            y = F.conv2d(F.pad(x, (pw[0], pw[1], ph[0], ph[1])), self.weight, None, self.stride)
+        return y + self.bias.to(y.dtype).view(1, -1, 1, 1)
+
+
+def leaky_relu(x: torch.Tensor) -> torch.Tensor:
+    """flax ``leaky_relu(x, 0.2)``: the slope is rounded to ``x``'s dtype."""
+    return torch.where(x >= 0, x, x * torch.tensor(NEGATIVE_SLOPE, dtype=x.dtype))
 
 
 class GroupNorm(nn.GroupNorm):
-    """flax ``GroupNorm``: eps 1e-6, float32 statistics and parameters."""
+    """flax ``GroupNorm``: eps 1e-6, float32 statistics and parameters.
+
+    Its float32 statistics are not the reference's to the last bit, and no
+    formulation of them tried reproduces those (``tests/test_torch_reference.py``).
+    """
 
     def __init__(self, channels: int):
         super().__init__(num_groups(channels), channels, eps=GN_EPS)
@@ -77,7 +91,7 @@ class ConvBlock(nn.Module):
         self.GroupNorm_0 = GroupNorm(features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.leaky_relu(self.GroupNorm_0(self.Conv_0(x)), NEGATIVE_SLOPE)
+        return leaky_relu(self.GroupNorm_0(self.Conv_0(x)))
 
 
 class ResBlock2D(nn.Module):
@@ -91,7 +105,7 @@ class ResBlock2D(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.GroupNorm_0(self.Conv_0(self.ConvBlock_0(x)))
-        return F.leaky_relu(x + h, NEGATIVE_SLOPE)
+        return leaky_relu(x + h)
 
 
 def cast_convs(module: nn.Module, dtype: torch.dtype) -> nn.Module:

@@ -1,17 +1,21 @@
 """Camera ingest: side-by-side NV12 frames -> normalized model input.
 
-Counterpart of ``hobot_stereonet_tpu/ops/preprocess.py``.  The port serves
-the flagship's contract only: ``color_space="yuv"``, mean = std = 128, no
-int8 quantization.  The RGB and int8 paths wait for later work.
+Counterpart of ``hobot_stereonet_tpu/ops/preprocess.py``.  The NV12 ingest
+serves the flagship's contract only: ``color_space="yuv"``, mean = std =
+128, no int8 quantization.  The dataset path (:func:`rgb_pair_to_model_input`)
+takes either colour space.  The NV12 -> RGB ingest and int8 wait for later
+work.
 """
 
 from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
-from ..config import PreprocessConfig
+from ..config import PreprocessConfig, resolve_device
+from . import colorspace as cs
 from .kernels.preprocess_kernel import nv12_sbs_preprocess, nv12_sbs_preprocess_plain
 
 
@@ -23,6 +27,37 @@ def _check_contract(cfg: PreprocessConfig) -> None:
     if cfg.mean != 128.0 or cfg.std != 128.0:
         raise NotImplementedError(
             f"the ingest normalizes with mean = std = 128, got {cfg.mean}, {cfg.std}")
+
+
+def normalize(x: torch.Tensor, cfg: PreprocessConfig = PreprocessConfig()) -> torch.Tensor:
+    """``(x - mean) / std`` in float32."""
+    return (x.float() - cfg.mean) / cfg.std
+
+
+def rgb_pair_to_model_input(
+    left_rgb,
+    right_rgb,
+    cfg: PreprocessConfig = PreprocessConfig(),
+    device: "str | torch.device | None" = None,
+) -> torch.Tensor:
+    """Dataset path: an [H, W, 3] uint8 RGB pair -> [1, H, W, 6] float32.
+
+    With ``cfg.color_space == "yuv"`` each eye converts to YUV444 (clipped
+    to [0, 255]) before it is normalized, as in the reference.  Numpy
+    inputs are placed on ``device`` (default ``cuda:0``; pass
+    ``device="cpu"`` on a machine without a card); tensors stay where they
+    are.
+    """
+    if cfg.quantize:
+        raise NotImplementedError("int8 input quantization is not ported yet")
+    left, right = (t if isinstance(t, torch.Tensor)
+                   else torch.from_numpy(np.ascontiguousarray(t)).to(
+                       resolve_device(device, "rgb_pair_to_model_input"))
+                   for t in (left_rgb, right_rgb))
+    if cfg.color_space == "yuv":
+        left = torch.clamp(cs.rgb_to_yuv(left), 0.0, 255.0)
+        right = torch.clamp(cs.rgb_to_yuv(right), 0.0, 255.0)
+    return normalize(torch.cat([left.float(), right.float()], dim=-1), cfg)[None]
 
 
 def side_by_side_nv12_to_model_input(

@@ -1,0 +1,75 @@
+"""Reference data the port carries: the flagship's trained weights and the
+JAX package's outputs on fixed inputs, written with numpy so that a machine
+without JAX, flax or orbax can load them.
+
+  * ``flagship_params.npz``: ``checkpoints/flagship/params`` as a flax tree
+    (``runtime.weights.load_flax_npz``), 106 arrays, 887 032 parameters;
+  * ``flagship_outputs.npz``: the JAX package's ``FastStereoNet`` with
+    those weights, on the CPU under ``XLA_FLAGS`` = :data:`XLA_FLAGS` (it
+    rounds where the flax code does, as the port does):
+
+      - ``f32_disparity``/``f32_confidence``, ``bf16_disparity``/
+        ``bf16_confidence``: scenes :data:`SCENES` of the held-out set
+        (:func:`heldout_dataset`), [2, 256, 512] and [2, 32, 64];
+      - ``bf16_720p_disparity``: the frame of :func:`frame_720p`, [720, 1280];
+      - ``heldout_epe`` (per scene, [120]) and ``heldout_d1``: the JAX
+        ``evaluate_dataset`` in bf16 over the held-out set;
+      - ``xla_flags`` and ``jax_version``: how they were made.
+
+Both files are written by ``python tests/test_torch_reference.py --write``,
+and ``tests/test_torch_reference.py`` checks on every run that they are
+still what the checkpoint and the JAX package give.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+
+import numpy as np
+
+REF_DIR = Path(__file__).resolve().parent
+PARAMS_NPZ = REF_DIR / "flagship_params.npz"
+OUTPUTS_NPZ = REF_DIR / "flagship_outputs.npz"
+XLA_FLAGS = "--xla_allow_excess_precision=false"
+
+# The held-out set of scripts/accuracy_stats.py (the flagship's published
+# EPE, accuracy_stats.json), the two of its scenes whose outputs are kept,
+# and the scene seed of the 720p frame.
+HELDOUT = dict(size=120, seed=777, height=256, width=512)
+SCENES = (0, 1)
+FRAME_SEED = 720
+# The flagship's held-out EPE, mean and 95 % interval (accuracy_stats.json,
+# YUV_ft.heldout).
+HELDOUT_EPE_PX = 0.8689
+HELDOUT_EPE_CI95_PX = 0.0754
+
+
+def heldout_dataset():
+    """The 120 held-out procedural scenes at 256x512."""
+    from ..data.loader import SyntheticStereoDataset
+
+    return SyntheticStereoDataset(**HELDOUT)
+
+
+def frame_720p() -> np.ndarray:
+    """The reference's 720p side-by-side NV12 frame: one procedural scene,
+    encoded with the port's numpy/torch code (any machine makes the same)."""
+    from ..data.stream import rgb_pair_to_sbs_nv12
+    from ..data.synthetic import SyntheticConfig, generate_pair
+
+    l, r, _ = generate_pair(np.random.default_rng(FRAME_SEED),
+                            SyntheticConfig(height=720, width=1280))
+    return rgb_pair_to_sbs_nv12(l, r)
+
+
+def load_params() -> dict:
+    """The flagship's weights as a flax variables dict."""
+    from ..runtime.weights import load_flax_npz
+
+    return load_flax_npz(str(PARAMS_NPZ))
+
+
+def load_outputs() -> dict:
+    """The JAX outputs, ``{name: array}``."""
+    with np.load(OUTPUTS_NPZ) as data:
+        return {k: data[k] for k in data.files}

@@ -13,15 +13,32 @@ adaptive micro-batching into padded batch buckets, the same results.
 
 The pipeline per batch is the NV12 ingest kernel, ``FastStereoNet``, depth
 and the per-frame non-finite flags.  In place of the reference's jit
-dispatch, the dispatch thread enqueues the work and the device-to-host
-copies on a CUDA stream of its own and records an event; the fetch thread
-polls the event.  On the CPU (``device="cpu"``) the same pipeline runs
-synchronously in the dispatch thread.
+dispatch, the dispatch thread enqueues the work on a CUDA stream of its own
+and records an event; the fetch thread polls the event.  On the CPU
+(``device="cpu"``) the same pipeline runs synchronously in the dispatch
+thread.
 
-Served here: the flagship contract (FastStereoNet, convex upsampling,
-YUV input) on one device, with ``compute_depth``, ``emit_confidence`` and
-``nan_guard``.  The device frame ring, ``device_microbatch``, mesh
-serving, int8, the RGB input and stage timing wait for later work.
+Where a batch comes from:
+  * host frames (numpy ``sbs_nv12``): one pinned host-to-device copy;
+  * frames whose ``sbs_nv12`` are :class:`~..data.stream.RingSlot` of one
+    :class:`~..data.stream.DeviceFrameRing`: one ``index_select`` of the
+    ring on the engine's stream, after the stream has waited for the ring's
+    staging copy (``ring.ready``); no host copy.
+
+Options (``cfg.engine``):
+  * ``fetch_results=False``: results keep the batch on the device; each
+    holds a :class:`DeviceBatchView` of its row (no launch, no copy).  Only
+    the [B] non-finite flags come back to the host; completion is the
+    batch's event;
+  * ``stage_timing``: the ingest and the network run as two stages, each
+    ended by a wait on its own event, timed into
+    ``metrics.preprocess_latency`` and ``metrics.network_latency``.  This
+    serializes batches and is a diagnostic, not a serving mode;
+  * ``device_microbatch=m``: a bucket larger than ``m`` (and a multiple of
+    it) runs as consecutive chunks of ``m`` frames in one dispatch, which
+    bounds activation memory by the chunk.
+
+Not served here: mesh serving and int8 (``_check_supported``).
 """
 
 from __future__ import annotations
@@ -35,6 +52,7 @@ import numpy as np
 import torch
 
 from ..config import Config, resolve_device
+from ..data.stream import Frame, RingSlot, sbs_nv12_to_left_rgb
 from ..models import FastStereoNet
 from ..models.layers import cast_convs
 from ..ops import preprocess as pp
@@ -42,31 +60,60 @@ from ..ops.disparity import disparity_to_depth_m
 from .serving import ServingLoop
 from .weights import from_flax_params, random_flax_params
 
+__all__ = ["DeviceBatchView", "Frame", "StereoEngine", "StereoResult", "nonfinite_flags"]
+
 # Longest a fetch waits for one batch to finish on the device.
 DEVICE_DEADLINE_S = 120.0
 
 
-@dataclass
-class Frame:
-    """One side-by-side NV12 camera frame (``hobot_stereonet_tpu.data.stream.Frame``)."""
+class DeviceBatchView:
+    """One frame's row of a result batch that stays on the device.
 
-    timestamp: float
-    sbs_nv12: np.ndarray  # flat uint8, side-by-side NV12
-    height: int
-    full_width: int
-    gt_disparity: Optional[np.ndarray] = None
-    index: int = 0
+    ``device_array()`` is the row as a view (no launch).  It makes the
+    caller's current stream wait for the batch's event and records the
+    batch on that stream, so the caching allocator does not hand the
+    memory to a later batch while the caller's work still reads it.
+    ``np.asarray(view)`` copies the row to the host.
+    """
+
+    __slots__ = ("_batch", "_i", "_event")
+
+    def __init__(self, batch: torch.Tensor, i: int, event=None):
+        self._batch = batch
+        self._i = i
+        self._event = event
+
+    @property
+    def shape(self):
+        return tuple(self._batch.shape[1:])
+
+    @property
+    def dtype(self):
+        return self._batch.dtype
+
+    def device_array(self) -> torch.Tensor:
+        if self._batch.device.type == "cuda":
+            stream = torch.cuda.current_stream(self._batch.device)
+            if self._event is not None:
+                stream.wait_event(self._event)
+            self._batch.record_stream(stream)
+        return self._batch[self._i]
+
+    def __array__(self, dtype=None, copy=None):
+        out = self.device_array().cpu().numpy()
+        return out.astype(dtype) if dtype is not None else out
 
 
 @dataclass
 class StereoResult:
     index: int
     timestamp: float
-    disparity: np.ndarray                     # [H, W] float32 px
-    depth_m: Optional[np.ndarray] = None      # [H, W] float32 m
+    disparity: "np.ndarray | DeviceBatchView"  # [H, W] float32 px
+    depth_m: "Optional[np.ndarray | DeviceBatchView]" = None   # [H, W] float32 m
     gt_disparity: Optional[np.ndarray] = None
     e2e_latency_s: float = 0.0
-    confidence: Optional[np.ndarray] = None   # [H/8, W/8] in [0, 1]
+    confidence: "Optional[np.ndarray | DeviceBatchView]" = None  # [H/8, W/8] in [0, 1]
+    left_rgb: Optional[np.ndarray] = None     # [H, W, 3] uint8, with keep_left
 
 
 def nonfinite_flags(disp: torch.Tensor) -> torch.Tensor:
@@ -74,13 +121,10 @@ def nonfinite_flags(disp: torch.Tensor) -> torch.Tensor:
     return (~torch.isfinite(disp)).flatten(1).any(dim=1).float()
 
 
-def _check_supported(cfg: Config) -> None:
-    e = cfg.engine
+def _check_supported(cfg: Config, int8: bool) -> None:
     unsupported = {
-        "engine.stage_timing": e.stage_timing,
-        "engine.fetch_results=False": not e.fetch_results,
-        "engine.device_microbatch": e.device_microbatch,
         "mesh serving": int(cfg.mesh.get("data", 1)) * int(cfg.mesh.get("tile", 1)) > 1,
+        "int8": int8 or cfg.preprocess.quantize,
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
@@ -100,16 +144,17 @@ class StereoEngine(ServingLoop):
         eng.stop()
 
     ``params`` is a flax parameter tree of the JAX package (nested numpy
-    arrays, as orbax loads it); ``None`` means random weights from seed 0,
-    made by :func:`~.weights.random_flax_params`.
+    arrays, as orbax or :func:`~.weights.load_flax_npz` loads it); ``None``
+    means random weights from seed 0 (:func:`~.weights.random_flax_params`).
     """
 
     _thread_prefix = "engine"
 
     def __init__(self, cfg: Config = Config(), params: Optional[Mapping] = None,
                  compute_depth: bool = True, emit_confidence: bool = False,
+                 keep_left: bool = False, int8: bool = False,
                  device: "str | torch.device | None" = None):
-        _check_supported(cfg)
+        _check_supported(cfg, int8)
         self.device = resolve_device(device, "StereoEngine")
         self.cfg = cfg
         H, W = cfg.camera.height, cfg.camera.width
@@ -128,6 +173,7 @@ class StereoEngine(ServingLoop):
         self.model = cast_convs(model, cfg.model.compute_dtype).eval()
         self._compute_depth = compute_depth
         self._emit_confidence = emit_confidence
+        self._keep_left = keep_left
         self._buckets = cfg.engine.batch_buckets
         self._stream = None
         if self.device.type == "cuda":
@@ -139,49 +185,126 @@ class StereoEngine(ServingLoop):
     # Pipeline
     # ------------------------------------------------------------------
 
-    @torch.inference_mode()
-    def pipeline(self, sbs_batch: torch.Tensor):
-        """[B, L] uint8 frames on the engine's device ->
-        (disparity [B,H,W], depth | None, confidence | None, flags [B])."""
+    def _ingest(self, sbs_batch: torch.Tensor) -> torch.Tensor:
         H, W = self.cfg.camera.height, self.cfg.camera.width
-        x = pp.nv12_ingest(sbs_batch, H, 2 * W, self.cfg.preprocess)
-        left, right = pp.split_model_input(x)
-        out = self.model(left, right)
+        return pp.nv12_ingest(sbs_batch, H, 2 * W, self.cfg.preprocess)
+
+    def _network(self, x: torch.Tensor):
+        out = self.model(*pp.split_model_input(x))
         disp = out["disparity"]
         depth = disparity_to_depth_m(disp, self.cfg.camera) if self._compute_depth else None
         conf = out["confidence"] if self._emit_confidence else None
         return disp, depth, conf, nonfinite_flags(disp)
 
+    @torch.inference_mode()
+    def pipeline(self, sbs_batch: torch.Tensor):
+        """[B, L] uint8 frames on the engine's device ->
+        (disparity [B,H,W], depth | None, confidence | None, flags [B]).
+
+        With ``device_microbatch = m`` a batch larger than ``m`` (and a
+        multiple of it) runs as consecutive chunks of ``m`` frames."""
+        m = self.cfg.engine.device_microbatch
+        b = sbs_batch.shape[0]
+        if not (m and b > m and b % m == 0):
+            return self._network(self._ingest(sbs_batch))
+        chunks = [self._network(self._ingest(c)) for c in sbs_batch.split(m)]
+        return tuple(torch.cat(parts) if parts[0] is not None else None
+                     for parts in zip(*chunks))
+
     def _bucket(self, n: int) -> int:
         return next(b for b in self._buckets if b >= n)
 
-    def _assemble_batch(self, frames) -> np.ndarray:
-        """[bucket, L] uint8 host batch, padded by repeating the last frame
-        (pad rows are computed, then discarded)."""
-        bufs = [np.asarray(f.sbs_nv12) for f in frames]
-        bufs += [bufs[-1]] * (self._bucket(len(bufs)) - len(bufs))
-        return np.stack(bufs)
+    def _assemble_batch(self, frames):
+        """The frames as one [bucket, L] batch, padded by repeating the last
+        frame (pad rows are computed, then discarded).
 
-    def _launch(self, host_batch: np.ndarray):
-        """Enqueue one batch; returns (host outputs, completion event | None).
-
-        On CUDA everything is enqueued on the engine's stream: the
-        host-to-device copy, the pipeline, and non-blocking copies of the
-        outputs into pinned host memory.  The outputs are valid once the
-        returned event has completed.
+        Returns ``(ring, slot indices)`` when every frame is a slot of one
+        device ring, else a numpy array (slots of several rings are copied
+        to the host first).
         """
-        batch = torch.from_numpy(host_batch)
+        bufs = [f.sbs_nv12 for f in frames]
+        bufs += [bufs[-1]] * (self._bucket(len(bufs)) - len(bufs))
+        first = bufs[0]
+        if isinstance(first, RingSlot) and all(
+                isinstance(b, RingSlot) and b.ring is first.ring for b in bufs):
+            return first.ring, [b.slot for b in bufs]
+        return np.stack([np.asarray(b) for b in bufs])
+
+    def _to_device(self, batch) -> torch.Tensor:
+        """A batch from :meth:`_assemble_batch` as a [B, L] tensor on the
+        engine's device, enqueued on the current (the engine's) stream."""
+        if isinstance(batch, np.ndarray):
+            t = torch.from_numpy(batch)
+            if self._stream is None:
+                return t.to(self.device)
+            return t.pin_memory().to(self.device, non_blocking=True)
+        ring, slots = batch
+        if ring.data.device != self.device:
+            raise ValueError(f"frame ring on {ring.data.device}, engine on {self.device}")
+        idx = torch.tensor(slots, dtype=torch.int64)
         if self._stream is None:
-            return [o.numpy() if o is not None else None
-                    for o in self.pipeline(batch.to(self.device))], None
+            return ring.data.index_select(0, idx.to(ring.data.device))
+        if ring.ready is not None:
+            self._stream.wait_event(ring.ready)
+        ring.data.record_stream(self._stream)
+        return ring.data.index_select(0, idx.pin_memory().to(self.device, non_blocking=True))
+
+    def _launch(self, batch, record: bool = True):
+        """Enqueue one batch; returns (outputs, completion event | None).
+
+        On CUDA everything is enqueued on the engine's stream: the batch's
+        copy or gather, the pipeline, and non-blocking copies into pinned
+        host memory: of every output, or with ``fetch_results=False`` of the
+        flags only (the other outputs stay on the device).  The outputs are
+        valid once the returned event has completed.  With ``stage_timing``
+        the two stages are waited for and timed here (into the metrics
+        unless ``record`` is False).
+        """
+        fetch = self.cfg.engine.fetch_results
+        if self._stream is None:
+            dev = self._to_device(batch)
+            if self.cfg.engine.stage_timing:
+                outs = self._timed_stages(dev, record)
+            else:
+                outs = self.pipeline(dev)
+            if fetch:
+                outs = [o.numpy() if o is not None else None for o in outs]
+            return outs, None
         with torch.cuda.stream(self._stream):
-            dev = batch.pin_memory().to(self.device, non_blocking=True)
-            outs = self.pipeline(dev)
-            host = [o.to("cpu", non_blocking=True) if o is not None else None
-                    for o in outs]
+            dev = self._to_device(batch)
+            if self.cfg.engine.stage_timing:
+                outs = self._timed_stages(dev, record)
+            else:
+                outs = self.pipeline(dev)
+            if fetch:
+                outs = [o.to("cpu", non_blocking=True) if o is not None else None
+                        for o in outs]
+            else:
+                outs = list(outs[:3]) + [outs[3].to("cpu", non_blocking=True)]
             event = torch.cuda.Event()
             event.record(self._stream)
-        return host, event
+        return outs, event
+
+    @torch.inference_mode()
+    def _timed_stages(self, dev: torch.Tensor, record: bool):
+        """The pipeline as two stages, each waited for and timed."""
+        t0 = time.monotonic()
+        x = self._ingest(dev)
+        self._sync()
+        t_pre = time.monotonic()
+        outs = self._network(x)
+        self._sync()
+        t_net = time.monotonic()
+        if record:
+            self.metrics.preprocess_latency.record(t_pre - t0)
+            self.metrics.network_latency.record(t_net - t_pre)
+        return outs
+
+    def _sync(self) -> None:
+        if self._stream is not None:
+            event = torch.cuda.Event()
+            event.record(self._stream)
+            self._wait(event)
 
     @staticmethod
     def _wait(event, deadline_s: float = DEVICE_DEADLINE_S) -> None:
@@ -194,16 +317,44 @@ class StereoEngine(ServingLoop):
             time.sleep(0.0005)
 
     # ------------------------------------------------------------------
+    # Synchronous API
+    # ------------------------------------------------------------------
+
+    @torch.inference_mode()
+    def _forward(self, x) -> dict:
+        x = torch.as_tensor(x).to(self.device)
+        return self.model(*pp.split_model_input(x))
+
+    def infer(self, left_rgb: np.ndarray, right_rgb: np.ndarray) -> np.ndarray:
+        """One RGB uint8 pair [H, W, 3] -> disparity [H, W] float32 px."""
+        x = pp.rgb_pair_to_model_input(left_rgb, right_rgb, self.cfg.preprocess, self.device)
+        return self.infer_preprocessed(x)
+
+    def infer_with_confidence(self, left_rgb: np.ndarray, right_rgb: np.ndarray):
+        """Like :meth:`infer`, also returning the [H/8, W/8] confidence."""
+        x = pp.rgb_pair_to_model_input(left_rgb, right_rgb, self.cfg.preprocess, self.device)
+        out = self._forward(x)
+        return out["disparity"][0].cpu().numpy(), out["confidence"][0].cpu().numpy()
+
+    def infer_preprocessed(self, x) -> np.ndarray:
+        """Forward of a normalized [1, H, W, 6] input -> disparity [H, W]."""
+        return self._forward(x)["disparity"][0].cpu().numpy()
+
+    # ------------------------------------------------------------------
     # Lifecycle
     # ------------------------------------------------------------------
 
-    def warmup(self, buckets=None) -> None:
+    def warmup(self, buckets=None, ring=None) -> None:
         """Run the pipeline once per bucket (default: the smallest and the
-        largest), so that the first frames' latencies show steady state."""
+        largest), so that the first frames' latencies show steady state.
+        With ``ring`` the batches are gathers of its slots, as the
+        ring-fed stream's are."""
         if buckets is None:
             buckets = sorted({self._buckets[0], self._buckets[-1]})
         for b in buckets:
-            _, event = self._launch(np.zeros((b, self._expected_len), np.uint8))
+            batch = (ring, [0] * b) if ring is not None else \
+                np.zeros((b, self._expected_len), np.uint8)
+            _, event = self._launch(batch, record=False)
             self._wait(event)
 
     # ------------------------------------------------------------------
@@ -231,14 +382,19 @@ class StereoEngine(ServingLoop):
 
     def _fetch_loop_inner(self) -> None:
         nan_guard = self.cfg.engine.nan_guard
+        fetch = self.cfg.engine.fetch_results
         while not self._stop.is_set():
             try:
                 frames, outs, event, t0 = self._inflight_q.get(timeout=0.1)
             except queue.Empty:
                 continue
             self._wait(event)
-            disp, depth, conf, flags = (
-                o.numpy() if isinstance(o, torch.Tensor) else o for o in outs)
+            if fetch:
+                disp, depth, conf, flags = (
+                    o.numpy() if isinstance(o, torch.Tensor) else o for o in outs)
+            else:
+                disp, depth, conf, flags = outs
+                flags = flags.numpy()
             now = time.monotonic()
             self.metrics.infer_latency.record(now - t0)
             emitted = 0
@@ -246,15 +402,26 @@ class StereoEngine(ServingLoop):
                 if nan_guard and flags[i] > 0:
                     self.metrics.nan_drop()
                     continue
+                if fetch:
+                    d_i, z_i, c_i = (o[i] if o is not None else None
+                                     for o in (disp, depth, conf))
+                else:
+                    d_i, z_i, c_i = (DeviceBatchView(o, i, event) if o is not None else None
+                                     for o in (disp, depth, conf))
+                left_rgb = None
+                if self._keep_left:
+                    left_rgb = sbs_nv12_to_left_rgb(
+                        np.asarray(frame.sbs_nv12), frame.height, frame.full_width)
                 self.metrics.e2e_latency.record(now - frame.timestamp)
                 self._result_q.put(StereoResult(
                     index=frame.index,
                     timestamp=frame.timestamp,
-                    disparity=disp[i],
-                    depth_m=depth[i] if depth is not None else None,
+                    disparity=d_i,
+                    depth_m=z_i,
                     gt_disparity=frame.gt_disparity,
                     e2e_latency_s=now - frame.timestamp,
-                    confidence=conf[i] if conf is not None else None,
+                    confidence=c_i,
+                    left_rgb=left_rgb,
                 ))
                 emitted += 1
             if emitted:

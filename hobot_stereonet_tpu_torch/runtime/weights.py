@@ -11,10 +11,17 @@ the port's submodules carry the flax module names
 The trees come as nested mappings of numpy arrays.  ``from_flax_params``
 also takes the variables dict ``{"params": ...}`` and a train state, whose
 weights sit under ``["params"]["params"]`` beside ``opt_state``.
+
+A tree also travels as an ``.npz`` file, written and read with numpy alone
+(:func:`save_flax_npz`, :func:`load_flax_npz`): one array per leaf, keyed by
+its flax path (``FeatureTower_0/ConvBlock_0/Conv_0/kernel``).  The writer
+is deterministic, so the same tree gives the same bytes.
 """
 
 from __future__ import annotations
 
+import io
+import zipfile
 from typing import Dict, Mapping, Tuple
 
 import numpy as np
@@ -110,4 +117,43 @@ def random_flax_params(cfg: StereoNetConfig = StereoNetConfig(), seed: int = 0) 
             node["kernel"] = w.astype(np.float32)
         else:                                           # GroupNorm scale
             node["scale"] = np.ones(shape, np.float32)
+    return {"params": tree}
+
+
+# A fixed member timestamp, so that the same arrays give the same file.
+_NPZ_DATE = (1980, 1, 1, 0, 0, 0)
+
+
+def write_npz(path: str, arrays: Mapping[str, np.ndarray]) -> None:
+    """Write ``{key: array}`` as a compressed ``.npz`` that ``np.load``
+    reads, byte for byte the same for the same arrays (sorted keys, fixed
+    timestamps)."""
+    with zipfile.ZipFile(path, "w", compression=zipfile.ZIP_DEFLATED) as zf:
+        for key in sorted(arrays):
+            buf = io.BytesIO()
+            np.lib.format.write_array(buf, np.asarray(arrays[key]), allow_pickle=False)
+            info = zipfile.ZipInfo(key + ".npy", date_time=_NPZ_DATE)
+            info.compress_type = zipfile.ZIP_DEFLATED
+            info.external_attr = 0o644 << 16
+            zf.writestr(info, buf.getvalue())
+
+
+def save_flax_npz(tree: Mapping, path: str) -> None:
+    """Write a flax parameter tree (or variables dict, or train state) as
+    ``.npz``, one float32 array per leaf keyed by its flax path."""
+    write_npz(path, {"/".join(p): np.asarray(v, dtype=np.float32)
+                     for p, v in _flatten(_unwrap(tree))})
+
+
+def load_flax_npz(path: str) -> dict:
+    """Read an ``.npz`` of :func:`save_flax_npz` back into the variables
+    dict ``{"params": nested tree}``."""
+    tree: dict = {}
+    with np.load(path, allow_pickle=False) as data:
+        for key in data.files:
+            *mods, leaf = key.split("/")
+            node = tree
+            for m in mods:
+                node = node.setdefault(m, {})
+            node[leaf] = data[key]
     return {"params": tree}

@@ -133,3 +133,76 @@ def test_soft_argmin_kernel_on_rows_not_16_byte_aligned(device):
     want_d, want_c = soft_argmin_confidence_plain(logits, scale=8.0)
     torch.testing.assert_close(disp, want_d, rtol=1e-5, atol=1e-4)
     torch.testing.assert_close(conf, want_c, rtol=1e-5, atol=1e-6)
+
+
+def _small_engine(device, **engine):
+    from hobot_stereonet_tpu_torch.config import (
+        CameraConfig, Config, EngineConfig, PreprocessConfig, StereoNetConfig)
+    from hobot_stereonet_tpu_torch.runtime.engine import StereoEngine
+
+    cfg = Config(camera=CameraConfig(width=128, height=64),
+                 model=StereoNetConfig(feature_channels=16, num_feature_res_blocks=1,
+                                       num_aggregation_layers=1, aggregation_channels=16,
+                                       max_disparity=48, compute_dtype=torch.float32),
+                 preprocess=PreprocessConfig(color_space="yuv"),
+                 engine=EngineConfig(max_batch=4, batch_buckets=(1, 4), drop_on_full=False,
+                                     **engine))
+    return StereoEngine(cfg, emit_confidence=True, device=device)
+
+
+def test_ring_gather_waits_for_the_rings_staging_copy(device):
+    """The engine gathers on its own stream; a ring written late on the
+    default stream must still be read after that write (``ring.ready``)."""
+    from hobot_stereonet_tpu_torch.data.stream import DeviceFrameRing
+
+    eng = _small_engine(device)
+    ring = DeviceFrameRing(height=64, width=128, ring_size=2, device=device)
+    new = torch.randint(0, 256, tuple(ring.data.shape), dtype=torch.uint8).to(device)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)             # the default stream is busy ~50 ms
+    ring.data.copy_(new)
+    ring.ready.record()
+    with torch.cuda.stream(eng._stream):
+        batch = eng._to_device((ring, [1, 0]))
+    torch.cuda.synchronize()
+    assert torch.equal(batch, new[[1, 0]])
+
+
+def test_device_results_read_on_another_stream(device):
+    from hobot_stereonet_tpu_torch.data.stream import DeviceFrameRing
+    from hobot_stereonet_tpu_torch.runtime.engine import DeviceBatchView
+
+    eng = _small_engine(device, fetch_results=False)
+    ring = DeviceFrameRing(height=64, width=128, ring_size=3, device=device)
+    res = sorted(eng.run_stream(list(ring.frames(4)), timeout=120.0), key=lambda r: r.index)
+    assert [r.index for r in res] == [0, 1, 2, 3]
+    want = eng.pipeline(ring.data[[0, 1, 2, 0]])[0].cpu()
+    side = torch.cuda.Stream(device)
+    with torch.cuda.stream(side):
+        rows = [r.disparity.device_array() * 1.0 for r in res]
+    side.synchronize()
+    for r, row in zip(res, rows):
+        assert isinstance(r.disparity, DeviceBatchView)
+        assert torch.equal(row.cpu(), want[r.index])
+        assert np.array_equal(np.asarray(r.disparity), want[r.index].numpy())
+
+
+def test_groupnorm_on_the_card_is_batch_independent_and_equals_the_cpu(device):
+    from hobot_stereonet_tpu_torch.models.layers import GroupNorm
+
+    torch.manual_seed(0)
+    gn = GroupNorm(32)
+    with torch.no_grad():
+        gn.weight.uniform_(0.5, 1.5)
+        gn.bias.uniform_(-0.5, 0.5)
+    x = (torch.randn(32, 32, 90, 160) * 3 + 5).bfloat16().contiguous(
+        memory_format=torch.channels_last)
+    with torch.inference_mode():
+        cpu = gn(x)
+        gpu = gn.to(device)
+        xd = x.to(device)
+        whole = gpu(xd)
+        chunks = torch.cat([gpu(c) for c in xd.split(8)])
+        single = gpu(xd[:1])
+    assert torch.equal(whole, chunks) and torch.equal(whole[:1], single)
+    assert (whole.cpu() == cpu).float().mean().item() >= 0.99999

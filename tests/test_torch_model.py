@@ -169,3 +169,22 @@ def test_fast_stereonet_bf16_matches_jax_in_px(rng, flagship):
     assert np.median(err) <= 0.03 and err.max() <= 1.0, (np.median(err), err.max())
     conf_err = np.abs(out["confidence"].numpy() - np.asarray(jout["confidence"]))
     assert conf_err.max() <= 0.03, conf_err.max()
+
+
+def test_groupnorm_does_not_depend_on_the_batch():
+    """A frame's GroupNorm output is the same alone, in a chunk or in the
+    whole batch: each (sample, group) is reduced on its own."""
+    from hobot_stereonet_tpu_torch.models.layers import GroupNorm
+
+    torch.manual_seed(0)
+    gn = GroupNorm(32)
+    with torch.no_grad():
+        gn.weight.uniform_(0.5, 1.5)
+        gn.bias.uniform_(-0.5, 0.5)
+    x = (torch.randn(8, 32, 24, 40) * 3 + 5).bfloat16().contiguous(
+        memory_format=torch.channels_last)
+    with torch.inference_mode():
+        whole = gn(x)
+        assert torch.equal(whole, torch.cat([gn(x[i:i + 1]) for i in range(8)]))
+        assert torch.equal(whole, torch.cat([gn(x[:4]), gn(x[4:])]))
+    assert whole.dtype == torch.bfloat16

@@ -13,6 +13,10 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "orbax", "hobot_stereonet_tpu"))
 print(len(names), bad)
 assert len(names) >= 20, names
+new = {"data.synthetic", "data.loader", "data.stream", "utils.profiling",
+       "runtime.benchmark", "runtime.evaluate", "runtime.golden"}
+missing = {pkg.__name__ + "." + n for n in new} - set(names)
+assert not missing, missing
 assert not bad, bad
 """
 
