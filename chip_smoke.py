@@ -9,8 +9,8 @@ Phases, each printed with its elapsed seconds:
   2. build: the CUDA kernels, from ``hobot_stereonet_tpu_torch/csrc`` (one
      nvcc per source, all at once); each kernel's registers and spills
      (``-Xptxas -v``) and its instruction mix from ``cuobjdump -sass``: the
-     bf16 correlation must hold HMMA (tensor-core) instructions and the
-     one-pass soft-argmin 128-bit loads;
+     bf16 correlation must hold HMMA (tensor-core) instructions, the int8
+     conv kernels IMMA, and the one-pass soft-argmin 128-bit loads;
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the main path's shapes with a batch of 8 and of 32 (the flagship's
      largest bucket), and their times beside their bounds;
@@ -43,9 +43,24 @@ Phases, each printed with its elapsed seconds:
      batch of 1 against the same frame in the batch of 32;
   9. profile: one steady ring-fed batch of 32 under ``device_trace``
      (``torch.profiler``): the device-busy share of the traced window and
-     the ten largest device ops.
+     the ten largest device ops;
+ 10. int8 and RGB (w8a8 serving, ``ops/quant.py``): the int8 conv kernel
+     against its plain version (bit for bit) at each distinct conv shape of
+     the flagship at 720p, batches 8 and 32, in both schemes, timed beside
+     its bound and cuDNN's bf16 conv of the same shape (for scale; not the
+     same function); the ingest's RGB and RGB + quantize modes in phase 3;
+     the held-out EPE of the int8 network in the dynamic and the static
+     scheme (``checkpoints/flagship/calib.json``) paired against the stored
+     JAX int8 EPEs (|mean difference| <= 0.01 px, and inside 0.8689 +-
+     0.0754 px); an int8 frame alone equal to the same frame in a batch of
+     32, bit for bit, in both schemes; the bf16 engine's frame alone
+     against in the batch of 32 as shipped and under deterministic cuDNN
+     (with the batch-32 frames/s of each); ``StereoEngine(Config())`` (RGB)
+     and the int8 engines serving 32 frames at 720p; ``measure_engine_fps``
+     at batches 1 and 32 in int8 and int8 static; a ``torch.profiler``
+     summary of one int8 batch of 32.
 
-Phases 7 and 8 reset the kernels' launch counts just before they drive
+Phases 7, 8 and 10 reset the kernels' launch counts just before they drive
 their path and fail if a kernel of it was not launched.  The held-out
 scenes are rendered on a host thread from the start, beside phases 2-6.
 
@@ -68,7 +83,7 @@ import sys
 import time
 from pathlib import Path
 
-WATCHDOG_S = 480
+WATCHDOG_S = 900
 faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
 
 ROOT = Path(__file__).resolve().parent
@@ -77,6 +92,7 @@ T0 = time.monotonic()
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 F32_FLOPS = 67e12               # H100 SXM float32 outside the tensor cores
 BF16_FLOPS = 989e12             # H100 SXM bf16 on the tensor cores, dense
+INT8_OPS = 1979e12              # H100 SXM int8 on the tensor cores, dense
 BATCHES = (8, 32)               # batches of the kernel phase
 H, W = 720, 1280                # camera
 N_FRAMES = 32                   # frames the engine serves
@@ -90,6 +106,13 @@ BF16_MEDIAN_PX, BF16_OVER_1PX, BF16_MAX_PX = 0.03, 5e-4, 8.0
 # (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md, PR 6 review round).
 MICROBATCH_MAX_PX = 1e-4
 SPIN_CYCLES = 20_000_000        # about 10 ms of device time at H100 clocks
+# Ingest modes: (name, rgb, quantize).
+INGEST_MODES = (("yuv", False, False), ("rgb", True, False), ("rgb+quantize", True, True))
+# int8 held-out EPE against the stored JAX int8 EPEs of the same scheme:
+# the paired mean difference, in px.
+INT8_PAIRED_MEAN_PX = 0.01
+BF16_PATH = ("nv12_ingest", "correlation", "soft_argmin")   # the kernels of the bf16 path
+INT8_PATH = BF16_PATH + ("int8_conv",)
 
 
 def phase(msg: str) -> None:
@@ -133,7 +156,7 @@ def bound(bytes_moved: float, flops: float, flops_per_s: float = F32_FLOPS):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-SASS_OPS = ("HMMA", "LDSM", "LDGSTS", "LDG", "LDS", "STG", "STS", "MUFU.EX2")
+SASS_OPS = ("HMMA", "IMMA", "LDSM", "LDGSTS", "LDG", "LDS", "STG", "STS", "MUFU.EX2")
 
 
 def kernel_report(lib: Path, log: str) -> dict:
@@ -200,23 +223,30 @@ def kernel_phase(b, rng, flush, dev, h, w, c, d, scale, card) -> list:
 
     rows = []
     frames = torch.from_numpy(rng.integers(0, 256, (b, 3 * H * W), dtype=np.uint8)).to(dev)
-    got = kp.nv12_sbs_preprocess(frames, H, W)
-    want = kp.nv12_sbs_preprocess_plain(frames, H, W)
-    torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs().max().item()
-    if not torch.equal(got, want):
-        raise AssertionError(f"nv12_ingest differs from its plain version: max |err| {err}")
-    rows.append(dict(
-        name=kp.NAME, route="cuda", source="hobot_stereonet_tpu_torch/csrc/nv12_ingest.cu",
-        replaces="hobot_stereonet_tpu/ops/pallas/preprocess_kernel.py:74", batch=b,
-        tolerance="exact", max_abs_err=err,
-        ms=median_ms(lambda: kp.nv12_sbs_preprocess(frames, H, W), flush),
-        ms_read_flush=median_ms(lambda: kp.nv12_sbs_preprocess(frames, H, W), flush,
-                                read_flush=True),
-        plain_ms=median_ms(lambda: kp.nv12_sbs_preprocess_plain(frames, H, W), flush),
-        bound=bound(b * 3 * H * W + b * H * W * 6 * 2, 2.0 * b * H * W * 6),
-        library_ms=None))
-    del frames, got, want
+    for mode, rgb, quantize in INGEST_MODES:
+        kw = dict(rgb=rgb, quantize=quantize)
+        got = kp.nv12_sbs_preprocess(frames, H, W, **kw)
+        want = kp.nv12_sbs_preprocess_plain(frames, H, W, **kw)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            raise AssertionError(f"nv12_ingest ({mode}) differs from its plain version: "
+                                 f"max |err| {err}")
+        rows.append(dict(
+            name=kp.NAME, mode=mode, route="cuda",
+            source="hobot_stereonet_tpu_torch/csrc/nv12_ingest.cu",
+            replaces="hobot_stereonet_tpu/ops/pallas/preprocess_kernel.py:74", batch=b,
+            tolerance="exact", max_abs_err=err,
+            ms=median_ms(lambda: kp.nv12_sbs_preprocess(frames, H, W, **kw), flush),
+            ms_read_flush=median_ms(lambda: kp.nv12_sbs_preprocess(frames, H, W, **kw), flush,
+                                    read_flush=True),
+            plain_ms=median_ms(lambda: kp.nv12_sbs_preprocess_plain(frames, H, W, **kw), flush,
+                               iters=10),
+            bound=bound(b * 3 * H * W + b * H * W * 6 * got.element_size(),
+                        (8.0 if rgb else 2.0) * b * H * W * 6),
+            library_ms=None))
+        del got, want
+    del frames
 
     fl = torch.from_numpy(rng.standard_normal((b, h, w, c), np.float32)).bfloat16().to(dev)
     fr = torch.from_numpy(rng.standard_normal((b, h, w, c), np.float32)).bfloat16().to(dev)
@@ -275,11 +305,95 @@ def kernel_phase(b, rng, flush, dev, h, w, c, d, scale, card) -> list:
     del logits, got_d, got_c, want_d, want_c
 
     for r in rows:
-        phase(f"kernel {r['name']} B={b}: max |err| {r['max_abs_err']:.3g} ({r['tolerance']}), "
+        name = r["name"] + (" " + r["mode"] if "mode" in r else "")
+        phase(f"kernel {name} B={b}: max |err| {r['max_abs_err']:.3g} ({r['tolerance']}), "
               f"kernel {r['ms']:.4f} ms ({r['ms_read_flush']:.4f} ms after a read flush), "
               f"plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]}, "
               f"{100 * r['bound'][0] / r['ms']:.0f}% of it); {card}")
+    return rows
+
+
+def int8_conv_shapes(cfg, b: int) -> list:
+    """The flagship's distinct conv shapes at 720p and ``b`` frames:
+    (label, convs of that shape, N, Cin, Cout, kernel, stride, H, W) with
+    N, H, W the conv's input (the tower runs on both eyes, N = 2b)."""
+    m = cfg.model
+    c, d = m.feature_channels, m.num_disparities_coarse
+    agg, k = max(m.aggregation_channels, 64), m.cost_resolution_divisor
+    h, w = H // k, W // k
+    shapes = [(f"tower ConvBlock_{i}", 1, 2 * b, m.input_channels if i == 0 else c, c, 5, 2,
+               H >> i, W >> i) for i in range(m.downsample_factor)]
+    return shapes + [
+        ("tower 3x3", 2 * m.num_feature_res_blocks + 1, 2 * b, c, c, 3, 1, h, w),
+        ("aggregation ConvBlock_0", 1, b, d + c, agg, 3, 1, h, w),
+        ("aggregation and mask 3x3", 2 * m.num_aggregation_layers + 1, b, agg, agg, 3, 1, h, w),
+        ("aggregation Conv_0", 1, b, agg, d, 3, 1, h, w),
+        ("upsample_mask", 1, b, 64, 9 * k * k, 3, 1, h, w),
+    ]
+
+
+def int8_kernel_phase(b, rng, flush, dev, cfg, card) -> list:
+    """The int8 conv against its plain version at each flagship conv shape,
+    in both schemes, bit for bit; its time beside its bound and cuDNN's
+    bf16 conv of the same shape."""
+    import numpy as np
+    import torch
+
+    from hobot_stereonet_tpu_torch.models.layers import SameConv2d
+    from hobot_stereonet_tpu_torch.ops.kernels import int8_conv as k8
+
+    rows = []
+    shapes = int8_conv_shapes(cfg, b)
+    if sum(s[1] for s in shapes) != 28:
+        raise AssertionError(f"expected the flagship's 28 convs, got {shapes}")
+    for label, count, n, cin, cout, k, stride, h, w in shapes:
+        x = torch.from_numpy(rng.uniform(-1, 1, (n, h, w, cin)).astype(np.float32)
+                             ).bfloat16().to(dev).permute(0, 3, 1, 2)
+        q_w = torch.from_numpy(rng.integers(-127, 128, (cout, cin, k, k), dtype=np.int8)).to(dev)
+        packed = k8.pack_weight(q_w)
+        s_k = torch.from_numpy(rng.uniform(1e-4, 1e-2, cout).astype(np.float32)).to(dev)
+        bias = torch.from_numpy(rng.standard_normal(cout).astype(np.float32)).to(dev)
+        s_dyn = torch.from_numpy(rng.uniform(0.005, 0.01, n).astype(np.float32)).to(dev)
+        s_static = torch.tensor([1.0 / 127], device=dev)
+        schemes = {"dynamic": (s_dyn, s_dyn, True),
+                   "static": (s_static, torch.tensor([127.0], device=dev), False)}
+        ho, wo = -(-h // stride), -(-w // stride)
+        kk = k * k * cin
+        conv = SameConv2d(cin, cout, k, stride).to(dev, torch.bfloat16).to(
+            memory_format=torch.channels_last)
+        with torch.inference_mode():
+            cudnn_ms = median_ms(lambda: conv(x), flush)
+        for scheme, (sx, qs, divide) in schemes.items():
+            kw = dict(stride=stride, divide=divide, out_dtype=torch.bfloat16)
+            got = k8.int8_conv(x, q_w, packed, s_k, bias, sx, qs, **kw)
+            want = k8.int8_conv_plain(x, q_w, s_k, bias, sx, qs, **kw)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            if not torch.equal(got, want):
+                raise AssertionError(f"int8_conv {label} B={b} {scheme} differs from its plain "
+                                     f"version: max |err| {err}, bit-equal "
+                                     f"{(got == want).float().mean().item()}")
+            del got, want
+            rows.append(dict(
+                name=k8.NAME, shape=label, scheme=scheme, convs=count, route="cuda",
+                source="hobot_stereonet_tpu_torch/csrc/int8_conv.cu",
+                replaces="hobot_stereonet_tpu/ops/quant.py:92 (XLA s8 conv, not Pallas)",
+                batch=b, tolerance="exact", max_abs_err=err,
+                ms=median_ms(lambda: k8.int8_conv(x, q_w, packed, s_k, bias, sx, qs, **kw),
+                             flush),
+                plain_ms=median_ms(lambda: k8.int8_conv_plain(x, q_w, s_k, bias, sx, qs, **kw),
+                                   flush, iters=3, warmup=1),
+                bound=bound(n * h * w * cin * 2 + cout * kk + n * ho * wo * cout * 2,
+                            2.0 * n * ho * wo * cout * kk, INT8_OPS),
+                library_ms=None, cudnn_bf16_ms=cudnn_ms))
+        del x, q_w, packed, conv
+    torch.cuda.empty_cache()
+    for r in rows:
+        phase(f"kernel int8_conv {r['shape']} (x{r['convs']}) B={b} {r['scheme']}: exact; "
+              f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound'][0]:.4f} ms ({r['bound'][1]}, {100 * r['bound'][0] / r['ms']:.0f}% "
+              f"of it); cuDNN bf16 conv of the shape {r['cudnn_bf16_ms']:.4f} ms; {card}")
     return rows
 
 
@@ -342,6 +456,163 @@ def profile_summary(prof) -> tuple:
             [(a.key, a.device_time_total / 1e3, a.count) for a in kernels[:10]])
 
 
+def serve_frames(eng, feed) -> list:
+    """Queue the frames, start the engine (one bucket of them), drain, stop;
+    every result finite, one per frame."""
+    import numpy as np
+
+    from hobot_stereonet_tpu_torch.runtime.engine import Frame
+
+    for i, f in enumerate(feed):
+        eng.feed(Frame(time.monotonic(), f, H, 2 * W, index=i))
+    eng.start(warmup=False)
+    eng.drain(timeout=240.0)
+    results = list(eng.results(timeout=1.0))
+    eng.stop()
+    if sorted(r.index for r in results) != list(range(len(feed))) or eng.metrics.nan_dropped:
+        raise AssertionError(f"{len(results)} results for {len(feed)} frames, "
+                             f"{eng.metrics.nan_dropped} flagged non-finite")
+    for r in results:
+        d = np.asarray(r.disparity)
+        if d.shape != (H, W) or not np.isfinite(d).all():
+            raise AssertionError(f"frame {r.index}: disparity {d.shape}, not finite")
+    return results
+
+
+def int8_and_rgb_phase(ctx: dict) -> dict:
+    """Phase 10; returns the launches of each (kernel, mode or scheme) on its path."""
+    import numpy as np
+    import torch
+
+    from hobot_stereonet_tpu_torch import reference
+    from hobot_stereonet_tpu_torch.config import Config, PreprocessConfig
+    from hobot_stereonet_tpu_torch.ops import quant
+    from hobot_stereonet_tpu_torch.runtime.benchmark import measure_engine_fps
+    from hobot_stereonet_tpu_torch.runtime.engine import StereoEngine
+    from hobot_stereonet_tpu_torch.runtime.evaluate import evaluate_dataset
+    from hobot_stereonet_tpu_torch.utils.profiling import device_trace
+
+    dev, cfg, yuv, trained, card = ctx["dev"], ctx["cfg"], ctx["yuv"], ctx["trained"], ctx["card"]
+    ring, slots, ecfg = ctx["ring"], ctx["slots"], ctx["ecfg"]
+    stored = reference.load_outputs(reference.INT8_OUTPUTS_NPZ)
+    schemes = {"dynamic": dict(int8=True), "static": dict(static_quant=str(reference.CALIB_JSON))}
+    lo, hi = (reference.HELDOUT_EPE_PX - reference.HELDOUT_EPE_CI95_PX,
+              reference.HELDOUT_EPE_PX + reference.HELDOUT_EPE_CI95_PX)
+    launches = {}
+
+    # Held-out accuracy in each scheme, paired against JAX's int8 EPEs.
+    for scheme, kw in schemes.items():
+        t = time.monotonic()
+        quant.amax_calls.clear()
+        res, counts = on_path(INT8_PATH[1:], lambda: evaluate_dataset(
+            None, trained, ctx["heldout"], ctx["eval_cfg"], device=dev, **kw))
+        jax_epe = stored[f"{scheme}_heldout_epe"]
+        delta = np.asarray(res.per_frame_epe) - jax_epe
+        ci = 1.96 * delta.std(ddof=1) / np.sqrt(len(delta))
+        phase(f"int8 accuracy, {scheme}: over {res.n_frames} held-out scenes EPE {res.epe:.4f} px "
+              f"(must lie in [{lo:.4f}, {hi:.4f}]), D1 {res.d1_all:.4f}; paired per-scene EPE - "
+              f"JAX int8 {scheme}: mean {delta.mean():+.5f} +- {ci:.5f} px (95 %; limit "
+              f"|mean| {INT8_PAIRED_MEAN_PX}), max |.| {np.abs(delta).max():.4f} (JAX mean "
+              f"{jax_epe.mean():.4f}, D1 {float(stored[f'{scheme}_heldout_d1']):.4f}); launches "
+              f"{counts}, amax reductions {quant.amax_calls['cuda']} "
+              f"({time.monotonic() - t:.1f} s)")
+        if not (lo <= res.epe <= hi and abs(delta.mean()) <= INT8_PAIRED_MEAN_PX):
+            raise AssertionError(f"int8 {scheme} held-out EPE {res.epe}, paired mean "
+                                 f"{delta.mean()}")
+
+    # A frame alone against the same frame in the batch of 32: int8 bit for bit.
+    t = time.monotonic()
+    int8_engines = {}
+    for scheme, kw in schemes.items():
+        e8 = StereoEngine(ecfg, params=trained, emit_confidence=True, **kw)
+        with torch.inference_mode():
+            whole = e8.pipeline(ring.data[slots])
+            single = e8.pipeline(ring.data[slots[:1]])
+        torch.cuda.synchronize()
+        for name, a, b in (("disparity", whole[0], single[0]), ("confidence", whole[2], single[2])):
+            if not torch.equal(a[:1], b):
+                raise AssertionError(f"int8 {scheme}: frame 0 alone differs from frame 0 in the "
+                                     f"batch of {len(slots)} ({name}, max |diff| "
+                                     f"{(a[:1] - b).abs().max().item()})")
+        int8_engines[scheme] = e8
+    phase(f"int8 batch invariance: frame 0 alone equals frame 0 in the batch of {len(slots)}, "
+          f"disparity and confidence bit for bit, in both schemes ({time.monotonic() - t:.1f} s)")
+
+    # C1: the bf16 frame alone against in the batch, as shipped and under
+    # deterministic cuDNN, with the batch-32 frames/s of each.
+    shipped = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    for name, setting in (("as shipped", shipped), ("deterministic cuDNN", (True, False))):
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = setting
+        t = time.monotonic()
+        e16 = ctx["bf16_engine"]
+        with torch.inference_mode():
+            whole = e16.pipeline(ring.data[slots])[0]
+            single = e16.pipeline(ring.data[slots[:1]])[0]
+        torch.cuda.synchronize()
+        st = px_stats(single[0].cpu().numpy(), whole[0].cpu().numpy())
+        st["bit_equal"] = float((single[0] == whole[0]).float().mean())
+        fps = measure_engine_fps(params=trained, model_cfg=cfg.model, preprocess_cfg=yuv,
+                                 batch=32, n_batches=4, ring_size=2, height=H, width=W)["fps"]
+        phase(f"C1 bf16 {name} (cudnn.deterministic={setting[0]}, benchmark={setting[1]}): "
+              f"frame 0 alone vs in the batch of {len(slots)}: {st}; measure_engine_fps batch "
+              f"32: {fps} frames/s; {card} ({time.monotonic() - t:.1f} s)")
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = shipped
+
+    # StereoEngine(Config()) serves RGB; the int8 engines serve the flagship's
+    # YUV (dynamic) and RGB with the quantized input (static).
+    feed = ctx["rng"].integers(0, 256, (N_FRAMES, 3 * H * W), dtype=np.uint8)
+    rgbq = dataclasses.replace(Config(), preprocess=PreprocessConfig(quantize=True))
+    runs = (("Config() bf16 RGB", Config(), {}, ("nv12_ingest", "rgb")),
+            ("flagship int8 dynamic YUV", cfg, schemes["dynamic"], ("int8_conv", "dynamic")),
+            ("Config() int8 static RGB + quantize", rgbq, schemes["static"],
+             ("int8_conv", "static")))
+    for label, ecfg_i, kw, key in runs:
+        t = time.monotonic()
+        eng = StereoEngine(ecfg_i, params=trained, **kw)
+        eng.warmup(buckets=[N_FRAMES])
+        quant.amax_calls.clear()
+        want = INT8_PATH if kw else BF16_PATH
+        _, counts = on_path(want, lambda: serve_frames(eng, feed))
+        amax = quant.amax_calls["cuda"]
+        expect_amax = 28 if kw.get("int8") else 0
+        if kw and (counts["int8_conv"] != 28 or amax != expect_amax):
+            raise AssertionError(f"{label}: {counts['int8_conv']} int8 conv launches, {amax} "
+                                 f"amax reductions for one batch; expected 28 and {expect_amax}")
+        launches[key] = counts[key[0]]
+        if label.endswith("quantize"):
+            launches[("nv12_ingest", "rgb+quantize")] = counts["nv12_ingest"]
+        phase(f"engine {label}: {N_FRAMES} frames of {W}x{H} served in one batch, finite; "
+              f"launches {counts}, amax reductions {amax} ({time.monotonic() - t:.1f} s)")
+        del eng
+
+    # The benchmark surface in int8.
+    for scheme, kw in schemes.items():
+        for stage_timing in (False, True):
+            for b, nb in BENCH_BATCHES.items():
+                t = time.monotonic()
+                out, counts = on_path(INT8_PATH, lambda: measure_engine_fps(
+                    params=trained, model_cfg=cfg.model, preprocess_cfg=yuv, batch=b,
+                    n_batches=nb, stage_timing=stage_timing, ring_size=2, height=H, width=W,
+                    **kw))
+                phase(f"bench int8 {scheme}: measure_engine_fps batch {b}, stage_timing="
+                      f"{stage_timing}: {out}; launches {counts}; {card} "
+                      f"({time.monotonic() - t:.1f} s)")
+
+    # One ring-fed int8 batch of 32 under the profiler, after one unprofiled.
+    for scheme, e8 in int8_engines.items():
+        e8.warmup(buckets=[N_FRAMES], ring=ring)
+        with device_trace(str(ctx["log"] / f"int8_{scheme}_batch{N_FRAMES}")) as prof:
+            _, event = e8._launch((ring, slots))
+            e8._wait(event)
+        busy, total, top = profile_summary(prof)
+        phase(f"profile int8 {scheme}: one ring-fed batch of {N_FRAMES} at {W}x{H}: device busy "
+              f"{100 * busy:.1f} % of the traced window, {total:.3f} ms of device time; the "
+              f"largest kernels and copies: {card}")
+        for name, ms, calls in top:
+            phase(f"profile:   {ms:9.3f} ms  {calls:5d} calls  {name[:110]}")
+    return launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -400,9 +671,11 @@ def main() -> int:
 
     hmma = sass("correlation_bf16_kernel", "HMMA")
     vec = sass("soft_argmin_vector_kernel", "LDG.128")
-    if hmma <= 0 or vec <= 0:
-        raise AssertionError(f"expected HMMA in correlation_bf16_kernel ({hmma}) and 128-bit "
-                             f"loads in soft_argmin_vector_kernel ({vec})")
+    imma = min(sass(k, "IMMA") for k in ("int8_conv_kernel", "int8_conv_dense_kernel"))
+    if hmma <= 0 or vec <= 0 or imma <= 0:
+        raise AssertionError(f"expected HMMA in correlation_bf16_kernel ({hmma}), 128-bit "
+                             f"loads in soft_argmin_vector_kernel ({vec}) and IMMA (int8 "
+                             f"tensor-core) instructions in both int8 conv kernels ({imma})")
 
     # 3. kernels vs plain, at each batch -----------------------------------------
     rng = np.random.default_rng(0)
@@ -416,6 +689,8 @@ def main() -> int:
     phase(f"kernels: timing floor, an empty kernel by the same method: {floor:.4f} ms; {card}")
     for b in BATCHES:
         rows += kernel_phase(b, rng, flush, dev, h, w, c, d, float(k), card)
+    for b in BATCHES:
+        rows += int8_kernel_phase(b, rng, flush, dev, cfg, card)
     del flush
     # 4. reference: float32 network on the card vs the CPU ----------------------
     params = random_flax_params(cfg.model, seed=0)
@@ -479,7 +754,7 @@ def main() -> int:
         if r.confidence.shape != (h, w) or not (
                 (r.confidence >= 0).all() and (r.confidence <= 1).all()):
             raise AssertionError(f"frame {r.index}: confidence outside [0, 1]")
-    missing = [r["name"] for r in rows if launches.get(r["name"], 0) <= 0]
+    missing = [n for n in BF16_PATH if launches.get(n, 0) <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}; {launches}")
     batches = eng.metrics.dispatch_batch.summary()
@@ -571,7 +846,7 @@ def main() -> int:
         raise AssertionError(f"held-out EPE {res.epe} outside [{lo}, {hi}]")
 
     # 8. engine, benchmark surface ----------------------------------------------
-    path = [r["name"] for r in rows if r["batch"] == BATCHES[0]]
+    path = list(BF16_PATH)
     for stage_timing in (False, True):
         for b, nb in BENCH_BATCHES.items():
             t = time.monotonic()
@@ -649,11 +924,26 @@ def main() -> int:
     phase(f"profile: traces in {log} ({time.monotonic() - t:.1f} s)")
     renderer.shutdown(wait=True)
 
+    # 10. int8 and RGB ------------------------------------------------------------
+    path_launches = int8_and_rgb_phase(dict(
+        dev=dev, cfg=cfg, yuv=yuv, trained=trained, heldout=heldout, eval_cfg=eval_cfg,
+        ring=ring, slots=slots, ecfg=ecfg, bf16_engine=eng, rng=rng, card=card, log=log))
+    path_launches[("nv12_ingest", "yuv")] = launches["nv12_ingest"]
+    for name in ("correlation", "soft_argmin"):
+        path_launches[(name, None)] = launches[name]
+
+    def row_launches(r):
+        return path_launches[(r["name"], r.get("mode") or r.get("scheme"))]
+
     print(json.dumps({"kernels": [dict(
-        name=r["name"], route=r["route"], source=r["source"], replaces=r["replaces"],
-        batch=r["batch"], launches=launches[r["name"]], max_abs_err=r["max_abs_err"], ms=r["ms"],
+        name=r["name"], **{k: r[k] for k in ("mode", "shape", "scheme", "convs") if k in r},
+        route=r["route"], source=r["source"], replaces=r["replaces"],
+        batch=r["batch"], launches=row_launches(r), max_abs_err=r["max_abs_err"], ms=r["ms"],
         plain_ms=r["plain_ms"], bound_ms=r["bound"][0], bound_by=r["bound"][1],
-        library_ms=r["library_ms"]) for r in rows]}), flush=True)
+        library_ms=r["library_ms"], **({"cudnn_bf16_ms": r["cudnn_bf16_ms"]}
+                                       if "cudnn_bf16_ms" in r else {}))
+        for r in rows]}), flush=True)
+    phase(f"done in {time.monotonic() - T0:.1f} s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),
           flush=True)

@@ -14,9 +14,10 @@ Entry points:
     on the device of the frames it is given.
 
 The three Pallas kernels of the JAX package are CUDA kernels here
-(``csrc/*.cu``), built with ``nvcc`` into one shared library at first use
-(``ops/kernels/build.py``).  Each has a plain PyTorch version beside it,
-which runs for CPU tensors only.
+(``csrc/*.cu``), and so is the int8 convolution that the JAX package leaves
+to XLA (``ops/quant.py``); all are built with ``nvcc`` into one shared
+library at first use (``ops/kernels/build.py``).  Each has a plain PyTorch
+version beside it, which runs for CPU tensors only.
 """
 
 from .config import (

@@ -86,9 +86,9 @@ class FastStereoNet(nn.Module):
         cfg = self.cfg
         b = left.shape[0]
         k = cfg.cost_resolution_divisor
-        dt = self.upsample_mask.weight.dtype   # the compute dtype
-
-        feats = _nhwc(self.FeatureTower_0(_nchw(torch.cat([left, right], 0).to(dt))))
+        # The first conv casts the input to the compute dtype; its int8
+        # counterpart (ops/quant.py) quantizes the input as it comes.
+        feats = _nhwc(self.FeatureTower_0(_nchw(torch.cat([left, right], 0))))
         feat_l, feat_r = feats[:b], feats[b:]
 
         # [B, D, h, w] view -> channel-last [B, h, w, D]

@@ -20,11 +20,11 @@ Where the reference's numerics differ from PyTorch's defaults:
 
 from __future__ import annotations
 
-from typing import Tuple
-
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..ops.kernels.int8_conv import same_pads
 
 NEGATIVE_SLOPE = 0.2
 GN_EPS = 1e-6
@@ -37,23 +37,18 @@ def num_groups(features: int) -> int:
     return 1
 
 
-def _same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
-    """flax/XLA "SAME" padding (low, high) along one axis."""
-    out = -(-size // stride)
-    total = max((out - 1) * stride + kernel - size, 0)
-    return total // 2, total - total // 2
-
-
 class SameConv2d(nn.Conv2d):
-    """``nn.Conv2d`` with flax's "SAME" padding, symmetric or not."""
+    """``nn.Conv2d`` with flax's "SAME" padding, symmetric or not.  Like
+    flax's ``nn.Conv`` it casts its input to its own (the compute) dtype."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int = 3, stride: int = 1):
         super().__init__(in_ch, out_ch, kernel, stride=stride, padding=0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.weight.dtype)
         kh, kw = self.kernel_size
-        ph = _same_pads(x.shape[2], kh, self.stride[0])
-        pw = _same_pads(x.shape[3], kw, self.stride[1])
+        ph = same_pads(x.shape[2], kh, self.stride[0])
+        pw = same_pads(x.shape[3], kw, self.stride[1])
         if ph[0] == ph[1] and pw[0] == pw[1]:
             y = F.conv2d(x, self.weight, None, self.stride, (ph[0], pw[0]))
         else:

@@ -41,12 +41,15 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signature of every exported function: (argtypes), restype is int.
 _SIGNATURES = {
-    # src, dst, B, H, W, stream
-    "hst_nv12_ingest": (_P, _P, _I, _I, _I, _P),
+    # src, dst, B, H, W, rgb, quantize, stream
+    "hst_nv12_ingest": (_P, _P, _I, _I, _I, _I, _I, _P),
     # fl, fr, out, B, H, W, C, D, divisor, is_bf16, stream
     "hst_correlation": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
     # logits, disp, conf, N, D, scale, is_bf16, vector, stream
     "hst_soft_argmin": (_P, _P, _P, _I, _I, _F, _I, _I, _P),
+    # x, w, s_k, bias, sx, qs, y, N, H, W, Cin, Ho, Wo, Cout, KH, KW, stride,
+    # pad_t, pad_l, cpt, k_pad, per_sample, divide, x_bf16, y_bf16, stream
+    "hst_int8_conv": (_P,) * 7 + (_I,) * 18 + (_P,),
 }
 
 _lock = threading.Lock()

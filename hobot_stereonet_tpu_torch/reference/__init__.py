@@ -14,9 +14,19 @@ without JAX, flax or orbax can load them.
       - ``bf16_720p_disparity``: the frame of :func:`frame_720p`, [720, 1280];
       - ``heldout_epe`` (per scene, [120]) and ``heldout_d1``: the JAX
         ``evaluate_dataset`` in bf16 over the held-out set;
-      - ``xla_flags`` and ``jax_version``: how they were made.
+      - ``xla_flags`` and ``jax_version``: how they were made;
 
-Both files are written by ``python tests/test_torch_reference.py --write``,
+  * ``flagship_int8_outputs.npz``: the same network run w8a8 by the JAX
+    package (``ops/quant.py``), in bf16, under the same ``XLA_FLAGS``, for
+    each scheme ``dynamic`` (``quantized_apply``) and ``static``
+    (``static_quantized_apply`` with :data:`CALIB_JSON`):
+
+      - ``<scheme>_disparity`` [2, 256, 512] on scenes :data:`SCENES`;
+      - ``<scheme>_heldout_epe`` (per scene, [120]) and
+        ``<scheme>_heldout_d1``: the JAX ``evaluate_dataset`` over the
+        held-out set.
+
+The files are written by ``python tests/test_torch_reference.py --write``,
 and ``tests/test_torch_reference.py`` checks on every run that they are
 still what the checkpoint and the JAX package give.
 """
@@ -30,6 +40,10 @@ import numpy as np
 REF_DIR = Path(__file__).resolve().parent
 PARAMS_NPZ = REF_DIR / "flagship_params.npz"
 OUTPUTS_NPZ = REF_DIR / "flagship_outputs.npz"
+INT8_OUTPUTS_NPZ = REF_DIR / "flagship_int8_outputs.npz"
+# The flagship's calibrated activation scales, one per conv, keyed by flax path.
+CALIB_JSON = REF_DIR.parents[1] / "checkpoints" / "flagship" / "calib.json"
+INT8_SCHEMES = ("dynamic", "static")
 XLA_FLAGS = "--xla_allow_excess_precision=false"
 
 # The held-out set of scripts/accuracy_stats.py (the flagship's published
@@ -69,7 +83,8 @@ def load_params() -> dict:
     return load_flax_npz(str(PARAMS_NPZ))
 
 
-def load_outputs() -> dict:
-    """The JAX outputs, ``{name: array}``."""
-    with np.load(OUTPUTS_NPZ) as data:
+def load_outputs(path: Path = OUTPUTS_NPZ) -> dict:
+    """The JAX outputs, ``{name: array}`` (``path``: :data:`INT8_OUTPUTS_NPZ`
+    for the int8 ones)."""
+    with np.load(path) as data:
         return {k: data[k] for k in data.files}

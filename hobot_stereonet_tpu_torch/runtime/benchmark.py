@@ -46,16 +46,15 @@ def measure_engine_fps(
     throughput does not depend on them).  ``model`` is accepted for the
     reference's signature and must be ``None``: the engine builds the
     port's ``FastStereoNet`` from ``model_cfg``.  ``preprocess_cfg``
-    defaults to the YUV input, the only one the port's NV12 ingest serves
-    (the reference defaults to RGB).  ``int8`` and ``static_quant`` are not
-    ported yet.  The engine runs on ``device`` (default ``cuda:0``).
+    defaults to the YUV input, the flagship's (the reference defaults to
+    RGB).  ``int8=True`` serves w8a8 with dynamic scales, ``static_quant``
+    (a calibration dict or ``calib.json`` path) with calibrated ones.  The
+    engine runs on ``device`` (default ``cuda:0``).
     """
     from ..config import CameraConfig, Config, EngineConfig, PreprocessConfig, StereoNetConfig
     from ..data.stream import DeviceFrameRing
     from .engine import StereoEngine
 
-    if int8 or static_quant is not None:
-        raise NotImplementedError("int8 serving is not ported yet")
     if model is not None:
         raise ValueError("the port's engine builds its own model; pass model_cfg and params")
     n_frames = batch * n_batches
@@ -75,7 +74,8 @@ def measure_engine_fps(
             device_microbatch=device_microbatch,
         ),
     )
-    eng = StereoEngine(cfg, params=params, compute_depth=False, device=device)
+    eng = StereoEngine(cfg, params=params, compute_depth=False, int8=int8,
+                       static_quant=static_quant, device=device)
     ring = DeviceFrameRing(height=height, width=width, ring_size=ring_size, device=eng.device)
 
     t_w = time.perf_counter()

@@ -38,7 +38,11 @@ Options (``cfg.engine``):
     it) runs as consecutive chunks of ``m`` frames in one dispatch, which
     bounds activation memory by the chunk.
 
-Not served here: mesh serving and int8 (``_check_supported``).
+w8a8 (``int8=True``, dynamic scales, or ``static_quant=`` a calibration
+dict or ``calib.json`` path, static scales): every conv runs as the int8
+conv kernel (``ops/quant.py``), quantized once from the float32 weights.
+
+Not served here: mesh serving (``_check_supported``).
 """
 
 from __future__ import annotations
@@ -54,9 +58,9 @@ import torch
 from ..config import Config, resolve_device
 from ..data.stream import Frame, RingSlot, sbs_nv12_to_left_rgb
 from ..models import FastStereoNet
-from ..models.layers import cast_convs
 from ..ops import preprocess as pp
 from ..ops.disparity import disparity_to_depth_m
+from ..ops.quant import load_calibration, serving_model
 from .serving import ServingLoop
 from .weights import from_flax_params, random_flax_params
 
@@ -121,14 +125,9 @@ def nonfinite_flags(disp: torch.Tensor) -> torch.Tensor:
     return (~torch.isfinite(disp)).flatten(1).any(dim=1).float()
 
 
-def _check_supported(cfg: Config, int8: bool) -> None:
-    unsupported = {
-        "mesh serving": int(cfg.mesh.get("data", 1)) * int(cfg.mesh.get("tile", 1)) > 1,
-        "int8": int8 or cfg.preprocess.quantize,
-    }
-    bad = [k for k, v in unsupported.items() if v]
-    if bad:
-        raise NotImplementedError(f"not served by the port yet: {bad}")
+def _check_supported(cfg: Config) -> None:
+    if int(cfg.mesh.get("data", 1)) * int(cfg.mesh.get("tile", 1)) > 1:
+        raise NotImplementedError("not served by the port yet: mesh serving")
 
 
 class StereoEngine(ServingLoop):
@@ -146,15 +145,17 @@ class StereoEngine(ServingLoop):
     ``params`` is a flax parameter tree of the JAX package (nested numpy
     arrays, as orbax or :func:`~.weights.load_flax_npz` loads it); ``None``
     means random weights from seed 0 (:func:`~.weights.random_flax_params`).
+    ``int8=True`` serves w8a8 with dynamic scales, ``static_quant`` (a
+    calibration dict or a ``calib.json`` path) with calibrated ones.
     """
 
     _thread_prefix = "engine"
 
     def __init__(self, cfg: Config = Config(), params: Optional[Mapping] = None,
                  compute_depth: bool = True, emit_confidence: bool = False,
-                 keep_left: bool = False, int8: bool = False,
+                 keep_left: bool = False, int8: bool = False, static_quant=None,
                  device: "str | torch.device | None" = None):
-        _check_supported(cfg, int8)
+        _check_supported(cfg)
         self.device = resolve_device(device, "StereoEngine")
         self.cfg = cfg
         H, W = cfg.camera.height, cfg.camera.width
@@ -170,7 +171,11 @@ class StereoEngine(ServingLoop):
             params = random_flax_params(cfg.model, seed=0)
         model = FastStereoNet(cfg.model, device=self.device)
         model.load_state_dict(from_flax_params(params, cfg.model))
-        self.model = cast_convs(model, cfg.model.compute_dtype).eval()
+        if isinstance(static_quant, str):
+            static_quant = load_calibration(static_quant)
+        self.int8 = int8
+        self.static_quant = static_quant
+        self.model = serving_model(model, int8, static_quant)
         self._compute_depth = compute_depth
         self._emit_confidence = emit_confidence
         self._keep_left = keep_left

@@ -57,19 +57,19 @@ def evaluate_dataset(
     parameter tree, is loaded into it unless ``None``.  Each frame is padded
     at the bottom and right to the stride multiple (twice the cost-volume
     divisor), or to ``batch_compile_hw`` if larger, and the prediction is
-    cropped back.
+    cropped back.  ``int8=True`` evaluates w8a8 with dynamic scales,
+    ``static_quant`` (a calibration dict or ``calib.json`` path) with
+    calibrated ones; ``model`` must then still hold float32 weights.
     """
     from ..models import FastStereoNet
-    from ..models.layers import cast_convs
+    from ..ops.quant import serving_model
     from .weights import from_flax_params
 
-    if int8 or static_quant is not None:
-        raise NotImplementedError("int8 evaluation is not ported yet")
     if model is None:
         model = FastStereoNet(cfg.model, device=device)
     if params is not None:
         model.load_state_dict(from_flax_params(params, model.cfg))
-    model = cast_convs(model, model.cfg.compute_dtype).eval()
+    model = serving_model(model, int8, static_quant)
     dev = next(model.parameters()).device
 
     k = cfg.model.cost_resolution_divisor * 2

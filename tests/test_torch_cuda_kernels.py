@@ -6,7 +6,9 @@ without JAX:
 
     python -m pytest -m cuda --noconftest tests/test_torch_cuda_kernels.py
 
-Tolerances: the ingest is exact.  The correlation in bf16: at least
+Tolerances: the ingest is exact, in every colour space and with the input
+quantization; so is the int8 conv (integer sums, the same float32
+epilogue, one rounding).  The correlation in bf16: at least
 99.9 % of values bit-equal to the plain version, and every value within
 its Gram band (``correlation_gram_band``: the plain version with each
 bf16 Gram value one representable step down or up) plus 1e-5 absolute;
@@ -30,6 +32,11 @@ from hobot_stereonet_tpu_torch.ops.kernels.correlation import (
     soft_argmin_confidence,
     soft_argmin_confidence_plain,
     uses_vector_kernel,
+)
+from hobot_stereonet_tpu_torch.ops.kernels.int8_conv import (
+    int8_conv,
+    int8_conv_plain,
+    pack_weight,
 )
 from hobot_stereonet_tpu_torch.ops.kernels.preprocess_kernel import (
     nv12_sbs_preprocess,
@@ -206,3 +213,56 @@ def test_groupnorm_on_the_card_is_batch_independent_and_equals_the_cpu(device):
         single = gpu(xd[:1])
     assert torch.equal(whole, chunks) and torch.equal(whole[:1], single)
     assert (whole.cpu() == cpu).float().mean().item() >= 0.99999
+
+
+@pytest.mark.parametrize("rgb,quantize", [(True, False), (True, True), (False, True)])
+@pytest.mark.parametrize("b,h,w", [(3, 18, 34), (2, 720, 1280)])
+def test_ingest_kernel_modes_exact(device, b, h, w, rgb, quantize):
+    rng = np.random.default_rng(4)
+    frames = torch.from_numpy(rng.integers(0, 256, (b, 3 * h * w), dtype=np.uint8))
+    n0 = build.launch_counts["nv12_ingest"]
+    out = nv12_sbs_preprocess(frames.to(device), h, w, rgb=rgb, quantize=quantize)
+    torch.cuda.synchronize()
+    assert build.launch_counts["nv12_ingest"] == n0 + 1
+    want = nv12_sbs_preprocess_plain(frames, h, w, rgb=rgb, quantize=quantize)
+    assert out.dtype == want.dtype and torch.equal(out.cpu(), want)
+
+
+def _int8_case(rng, n, cin, cout, k, h, w, x_dtype, device):
+    x = torch.from_numpy((2.0 * rng.standard_normal((n, h, w, cin))).astype(np.float32))
+    x = x.to(x_dtype).to(device).permute(0, 3, 1, 2)
+    q_w = torch.from_numpy(rng.integers(-127, 128, (cout, cin, k, k), dtype=np.int8)).to(device)
+    s_k = torch.from_numpy(rng.uniform(1e-4, 1e-2, cout).astype(np.float32)).to(device)
+    bias = torch.from_numpy(rng.standard_normal(cout).astype(np.float32)).to(device)
+    return x, q_w, s_k, bias
+
+
+@pytest.mark.parametrize("static", [False, True])
+@pytest.mark.parametrize("n,cin,cout,k,stride,h,w,x_dtype,out_dtype", [
+    (2, 3, 32, 5, 2, 72, 128, torch.float32, torch.bfloat16),     # the tower's first conv
+    (2, 3, 32, 5, 2, 17, 30, torch.bfloat16, torch.float32),
+    (2, 32, 32, 5, 2, 36, 64, torch.bfloat16, torch.bfloat16),
+    (3, 32, 32, 3, 1, 18, 34, torch.bfloat16, torch.bfloat16),
+    (2, 56, 64, 3, 1, 12, 20, torch.bfloat16, torch.bfloat16),    # aggregation's first
+    (2, 64, 24, 3, 1, 12, 20, torch.bfloat16, torch.bfloat16),
+    (2, 64, 576, 3, 1, 9, 16, torch.bfloat16, torch.bfloat16),    # the mask head
+    (2, 16, 8, 3, 1, 7, 9, torch.float32, torch.float32),
+])
+def test_int8_conv_kernel_exact(device, n, cin, cout, k, stride, h, w, x_dtype, out_dtype,
+                                static):
+    rng = np.random.default_rng(5)
+    x, q_w, s_k, bias = _int8_case(rng, n, cin, cout, k, h, w, x_dtype, device)
+    if static:
+        sx = torch.tensor([0.05], device=device)
+        qs = torch.tensor([1.0], device=device) / sx
+    else:
+        sx = qs = torch.from_numpy(rng.uniform(0.01, 0.05, n).astype(np.float32)).to(device)
+    n0 = build.launch_counts["int8_conv"]
+    kw = dict(stride=stride, divide=not static, out_dtype=out_dtype)
+    got = int8_conv(x, q_w, pack_weight(q_w), s_k, bias, sx, qs, **kw)
+    torch.cuda.synchronize()
+    assert build.launch_counts["int8_conv"] == n0 + 1
+    want = int8_conv_plain(x, q_w, s_k, bias, sx, qs, **kw)
+    assert got.shape == want.shape == (n, cout, -(-h // stride), -(-w // stride))
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, want), (got.float() - want.float()).abs().max().item()

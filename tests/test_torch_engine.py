@@ -27,9 +27,11 @@ from hobot_stereonet_tpu import config as jconfig
 from hobot_stereonet_tpu.data import stream as jstream
 from hobot_stereonet_tpu.data.stream import Frame as JFrame
 from hobot_stereonet_tpu.runtime.checkpoint import load_params
+from hobot_stereonet_tpu.models import FastStereoNet as JFastStereoNet
 from hobot_stereonet_tpu.runtime.engine import StereoEngine as JStereoEngine
 from hobot_stereonet_tpu_torch import config as tconfig
 from hobot_stereonet_tpu_torch.data import stream as tstream
+from hobot_stereonet_tpu_torch.reference import CALIB_JSON
 from hobot_stereonet_tpu_torch.runtime.engine import DeviceBatchView, Frame, StereoEngine
 
 torch.set_num_threads(1)
@@ -192,15 +194,16 @@ def test_drain_waits_for_a_frame_between_queues(frames):
 
 
 def test_engine_refuses_what_it_does_not_serve():
+    """Mesh serving is refused; int8, static scales and the quantized input
+    are served (tests below and tests/test_torch_quant.py)."""
     _, tcfg = _configs()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="mesh"):
         StereoEngine(dataclasses.replace(tcfg, mesh={"data": 2, "tile": 1}), device="cpu")
-    with pytest.raises(NotImplementedError, match="int8"):
-        StereoEngine(tcfg, int8=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="int8"):
-        StereoEngine(dataclasses.replace(
-            tcfg, preprocess=tconfig.PreprocessConfig(color_space="yuv", quantize=True)),
-            device="cpu")
+    assert StereoEngine(tcfg, int8=True, device="cpu").int8
+    eng = StereoEngine(dataclasses.replace(
+        tcfg, preprocess=tconfig.PreprocessConfig(color_space="yuv", quantize=True)),
+        static_quant=str(CALIB_JSON), device="cpu")
+    assert len(eng.static_quant) == 28
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             StereoEngine(tcfg)
@@ -231,6 +234,74 @@ def test_bf16_engine_matches_jax(params, rings):
     stats = (float(np.median(err)), float(np.mean(err > 1.0)), float(err.max()))
     assert stats[0] <= 0.05 and stats[1] <= 0.03 and stats[2] <= 8.0, stats
     assert np.abs(c - jc).max() <= 0.03 and not flags.any()
+
+
+def _bf16_engine_stats(d, jd):
+    err = np.abs(d - jd)
+    return float(np.median(err)), float(np.mean(err > 1.0)), float(err.max())
+
+
+def test_default_config_engine_matches_jax(params, rings):
+    """F1: ``Config()`` (RGB input, bf16, the flagship's widths) at a 64x128
+    camera, against the JAX engine of the same config, on the same frames
+    and weights: the bounds of :func:`test_bf16_engine_matches_jax`
+    (measured on the CPU: median 0.030 px, 0.36 % of pixels over 1 px, max
+    2.22 px).  The RGB ingest itself is bit-equal to JAX's
+    (tests/test_torch_ingest_modes.py); in float32 the two engines agree
+    to the float32 network's 1e-3 px."""
+    camera = dict(width=W, height=H)
+    batch = rings[1].data[[0, 1, 2, 2]].numpy()
+    for dt, jdt in ((torch.bfloat16, jnp.bfloat16), (torch.float32, jnp.float32)):
+        jcfg = jconfig.Config(camera=jconfig.CameraConfig(**camera),
+                              model=jconfig.StereoNetConfig(compute_dtype=jdt),
+                              engine=jconfig.EngineConfig(**ENGINE))
+        tcfg = tconfig.Config(camera=tconfig.CameraConfig(**camera),
+                              model=tconfig.StereoNetConfig(compute_dtype=dt),
+                              engine=tconfig.EngineConfig(**ENGINE))
+        assert tcfg.preprocess == tconfig.PreprocessConfig(color_space="rgb")
+        jeng = JStereoEngine(jcfg, params=params, emit_confidence=True)
+        eng = StereoEngine(tcfg, params=params, emit_confidence=True, device="cpu")
+        jd, _, jc, _ = (np.asarray(a) for a in jeng._pipeline(jeng.params, jnp.asarray(batch)))
+        d, _, c, flags = (t.numpy() for t in eng.pipeline(torch.from_numpy(batch)))
+        assert not flags.any() and d.shape == (4, H, W)
+        if dt == torch.float32:
+            np.testing.assert_allclose(d, jd, atol=1e-3)
+            np.testing.assert_allclose(c, jc, atol=1e-4)
+        else:
+            stats = _bf16_engine_stats(d, jd)
+            assert stats[0] <= 0.05 and stats[1] <= 0.03 and stats[2] <= 8.0, stats
+            assert np.abs(c - jc).max() <= 0.03
+
+
+@pytest.mark.parametrize("scheme", ["dynamic", "static"])
+def test_int8_engine_matches_jax(params, rings, scheme):
+    """The flagship's bf16 engine run w8a8 (``int8=True``; ``static_quant``
+    = the flagship's ``calib.json``), against the JAX engine run the same
+    way, on the same frames and weights: median |error| <= 0.06 px, at
+    most 3 % of pixels over 1 px, none over 16 px, confidence within 0.05
+    (measured on the CPU: dynamic median 0.050 px, 0.96 % over 1 px, max
+    4.55 px, confidence 0.026; static 0.020 px, 1.62 %, 7.09 px, 0.030;
+    the int8 bounds of tests/test_torch_quant.py, with the 64x128 share
+    over 1 px of :func:`test_bf16_engine_matches_jax`).  Within
+    the port, the padded row equals the frame it repeats."""
+    from hobot_stereonet_tpu.ops import quant as jq
+
+    jcfg, tcfg = _configs(bf16=True)
+    if scheme == "static":
+        jkw = dict(static_quant=jq.make_static_quant(
+            JFastStereoNet(jcfg.model), params, str(CALIB_JSON), H, W))
+        tkw = dict(static_quant=str(CALIB_JSON))
+    else:
+        jkw = tkw = dict(int8=True)
+    jeng = JStereoEngine(jcfg, params=params, emit_confidence=True, **jkw)
+    eng = StereoEngine(tcfg, params=params, emit_confidence=True, device="cpu", **tkw)
+    batch = rings[1].data[[0, 1, 2, 2]].numpy()
+    jd, _, jc, _ = (np.asarray(a) for a in jeng._pipeline(jeng.params, jnp.asarray(batch)))
+    d, _, c, flags = (t.numpy() for t in eng.pipeline(torch.from_numpy(batch)))
+    stats = _bf16_engine_stats(d, jd)
+    assert stats[0] <= 0.06 and stats[1] <= 0.03 and stats[2] <= 16.0, stats
+    assert np.abs(c - jc).max() <= 0.05 and not flags.any()
+    np.testing.assert_array_equal(d[3], d[2])
 
 
 def _results(res):

@@ -96,11 +96,12 @@ def test_ingest_dispatch_on_cpu_runs_plain_without_counting(rng):
 
 
 def test_ingest_rejects_what_it_does_not_serve(rng):
+    """Every colour space and the input quantization are served (against
+    JAX in tests/test_torch_ingest_modes.py); malformed frames are refused."""
     frames = torch.from_numpy(_frames(rng, 1, 8, 16))
-    with pytest.raises(NotImplementedError):
-        pp.nv12_ingest(frames, 8, 32, PreprocessConfig(color_space="rgb"))
-    with pytest.raises(NotImplementedError):
-        pp.nv12_ingest(frames, 8, 32, PreprocessConfig(color_space="yuv", quantize=True))
+    assert pp.nv12_ingest(frames, 8, 32, PreprocessConfig(color_space="rgb")).dtype == torch.float32
+    assert pp.nv12_ingest(frames, 8, 32, PreprocessConfig(color_space="yuv", quantize=True)
+                          ).dtype == torch.bfloat16
     with pytest.raises(TypeError):
         nv12_sbs_preprocess(frames.float(), 8, 16)
     with pytest.raises(ValueError):

@@ -14,7 +14,8 @@ bad = sorted(m for m in sys.modules
 print(len(names), bad)
 assert len(names) >= 20, names
 new = {"data.synthetic", "data.loader", "data.stream", "utils.profiling",
-       "runtime.benchmark", "runtime.evaluate", "runtime.golden"}
+       "runtime.benchmark", "runtime.evaluate", "runtime.golden", "ops.quant",
+       "ops.kernels.int8_conv", "ops.kernels.numerics"}
 missing = {pkg.__name__ + "." + n for n in new} - set(names)
 assert not missing, missing
 assert not bad, bad

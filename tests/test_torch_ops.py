@@ -75,8 +75,10 @@ def test_rgb_pair_to_model_input(rng, space):
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
     np.testing.assert_allclose(pp.normalize(torch.from_numpy(l)).numpy(),
                                np.asarray(jpp.normalize(jnp.asarray(l))), rtol=0, atol=0)
-    with pytest.raises(NotImplementedError):
-        pp.rgb_pair_to_model_input(l, r, PreprocessConfig(quantize=True), "cpu")
+    # As the JAX package's, the dataset path does not quantize.
+    quantized = pp.rgb_pair_to_model_input(l, r, PreprocessConfig(color_space=space,
+                                                                  quantize=True), "cpu")
+    assert torch.equal(quantized, got)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):        # cuda:0 unless told otherwise
             pp.rgb_pair_to_model_input(l, r)
