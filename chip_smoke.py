@@ -9,8 +9,9 @@ Phases, each printed with its elapsed seconds:
   2. build: the CUDA kernels, from ``hobot_stereonet_tpu_torch/csrc`` (one
      nvcc per source, all at once); each kernel's registers and spills
      (``-Xptxas -v``) and its instruction mix from ``cuobjdump -sass``: the
-     bf16 correlation must hold HMMA (tensor-core) instructions, the int8
-     conv kernels IMMA, and the one-pass soft-argmin 128-bit loads;
+     bf16 correlation must hold HMMA (tensor-core) instructions, both int8
+     conv kernels IGMMA (warpgroup int8 MMA, wgmma) and the Cin % 8 == 0 one
+     UTMALDG (TMA loads), and the one-pass soft-argmin 128-bit loads;
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the main path's shapes with a batch of 8 and of 32 (the flagship's
      largest bucket), and their times beside their bounds;
@@ -46,9 +47,12 @@ Phases, each printed with its elapsed seconds:
      the ten largest device ops;
  10. int8 and RGB (w8a8 serving, ``ops/quant.py``): the int8 conv kernel
      against its plain version (bit for bit) at each distinct conv shape of
-     the flagship at 720p, batches 8 and 32, in both schemes, timed beside
-     its bound and cuDNN's bf16 conv of the same shape (for scale; not the
-     same function); the ingest's RGB and RGB + quantize modes in phase 3;
+     the flagship at 720p and at the tower's first conv with the float32
+     input of the RGB ingest, batches 8 and 32, in both schemes, timed
+     beside its bound (and its share of it) and cuDNN's bf16 conv of the
+     same shape (for scale; not the same function), with the 28 convs' sum
+     against cuDNN's; the host time of one ``int8_conv`` call at batch 1;
+     the ingest's RGB and RGB + quantize modes in phase 3;
      the held-out EPE of the int8 network in the dynamic and the static
      scheme (``checkpoints/flagship/calib.json``) paired against the stored
      JAX int8 EPEs (|mean difference| <= 0.01 px, and inside 0.8689 +-
@@ -156,7 +160,8 @@ def bound(bytes_moved: float, flops: float, flops_per_s: float = F32_FLOPS):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-SASS_OPS = ("HMMA", "IMMA", "LDSM", "LDGSTS", "LDG", "LDS", "STG", "STS", "MUFU.EX2")
+SASS_OPS = ("HMMA", "IMMA", "IGMMA", "UTMALDG", "UBLKCP", "LDSM", "LDGSTS", "LDG", "LDS", "STG", "STS",
+            "MUFU.EX2")
 
 
 def kernel_report(lib: Path, log: str) -> dict:
@@ -187,7 +192,7 @@ def kernel_report(lib: Path, log: str) -> dict:
         if m:
             name = short(m.group(1))
             report.setdefault(name, {})
-        elif name and "registers" in line:
+        elif name and re.search(r"Used \d+ registers", line):
             report[name]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
         elif name and "spill stores" in line:
             report[name]["spill_bytes"] = sum(map(int, re.findall(r"(\d+) bytes spill", line)))
@@ -316,20 +321,28 @@ def kernel_phase(b, rng, flush, dev, h, w, c, d, scale, card) -> list:
 
 def int8_conv_shapes(cfg, b: int) -> list:
     """The flagship's distinct conv shapes at 720p and ``b`` frames:
-    (label, convs of that shape, N, Cin, Cout, kernel, stride, H, W) with
-    N, H, W the conv's input (the tower runs on both eyes, N = 2b)."""
+    (label, convs of that shape, N, Cin, Cout, kernel, stride, H, W, input
+    dtype) with N, H, W the conv's input (the tower runs on both eyes,
+    N = 2b).  The 28 convs of a batch in bf16, then the tower's first conv
+    with the float32 input that the RGB ingest hands it (``Config()``)."""
+    import torch
+
     m = cfg.model
     c, d = m.feature_channels, m.num_disparities_coarse
     agg, k = max(m.aggregation_channels, 64), m.cost_resolution_divisor
     h, w = H // k, W // k
+    bf = torch.bfloat16
     shapes = [(f"tower ConvBlock_{i}", 1, 2 * b, m.input_channels if i == 0 else c, c, 5, 2,
-               H >> i, W >> i) for i in range(m.downsample_factor)]
+               H >> i, W >> i, bf) for i in range(m.downsample_factor)]
     return shapes + [
-        ("tower 3x3", 2 * m.num_feature_res_blocks + 1, 2 * b, c, c, 3, 1, h, w),
-        ("aggregation ConvBlock_0", 1, b, d + c, agg, 3, 1, h, w),
-        ("aggregation and mask 3x3", 2 * m.num_aggregation_layers + 1, b, agg, agg, 3, 1, h, w),
-        ("aggregation Conv_0", 1, b, agg, d, 3, 1, h, w),
-        ("upsample_mask", 1, b, 64, 9 * k * k, 3, 1, h, w),
+        ("tower 3x3", 2 * m.num_feature_res_blocks + 1, 2 * b, c, c, 3, 1, h, w, bf),
+        ("aggregation ConvBlock_0", 1, b, d + c, agg, 3, 1, h, w, bf),
+        ("aggregation and mask 3x3", 2 * m.num_aggregation_layers + 1, b, agg, agg, 3, 1, h, w,
+         bf),
+        ("aggregation Conv_0", 1, b, agg, d, 3, 1, h, w, bf),
+        ("upsample_mask", 1, b, 64, 9 * k * k, 3, 1, h, w, bf),
+        ("tower ConvBlock_0, float32 in", 1, 2 * b, m.input_channels, c, 5, 2, H, W,
+         torch.float32),
     ]
 
 
@@ -345,11 +358,11 @@ def int8_kernel_phase(b, rng, flush, dev, cfg, card) -> list:
 
     rows = []
     shapes = int8_conv_shapes(cfg, b)
-    if sum(s[1] for s in shapes) != 28:
+    if sum(s[1] for s in shapes if s[-1] == torch.bfloat16) != 28:
         raise AssertionError(f"expected the flagship's 28 convs, got {shapes}")
-    for label, count, n, cin, cout, k, stride, h, w in shapes:
+    for label, count, n, cin, cout, k, stride, h, w, x_dtype in shapes:
         x = torch.from_numpy(rng.uniform(-1, 1, (n, h, w, cin)).astype(np.float32)
-                             ).bfloat16().to(dev).permute(0, 3, 1, 2)
+                             ).to(x_dtype).to(dev).permute(0, 3, 1, 2)
         q_w = torch.from_numpy(rng.integers(-127, 128, (cout, cin, k, k), dtype=np.int8)).to(dev)
         packed = k8.pack_weight(q_w)
         s_k = torch.from_numpy(rng.uniform(1e-4, 1e-2, cout).astype(np.float32)).to(dev)
@@ -362,8 +375,10 @@ def int8_kernel_phase(b, rng, flush, dev, cfg, card) -> list:
         kk = k * k * cin
         conv = SameConv2d(cin, cout, k, stride).to(dev, torch.bfloat16).to(
             memory_format=torch.channels_last)
+        x16 = x.bfloat16()
         with torch.inference_mode():
-            cudnn_ms = median_ms(lambda: conv(x), flush)
+            cudnn_ms = median_ms(lambda: conv(x16), flush)
+        del x16
         for scheme, (sx, qs, divide) in schemes.items():
             kw = dict(stride=stride, divide=divide, out_dtype=torch.bfloat16)
             got = k8.int8_conv(x, q_w, packed, s_k, bias, sx, qs, **kw)
@@ -379,12 +394,12 @@ def int8_kernel_phase(b, rng, flush, dev, cfg, card) -> list:
                 name=k8.NAME, shape=label, scheme=scheme, convs=count, route="cuda",
                 source="hobot_stereonet_tpu_torch/csrc/int8_conv.cu",
                 replaces="hobot_stereonet_tpu/ops/quant.py:92 (XLA s8 conv, not Pallas)",
-                batch=b, tolerance="exact", max_abs_err=err,
+                batch=b, tolerance="exact", max_abs_err=err, x_dtype=str(x_dtype),
                 ms=median_ms(lambda: k8.int8_conv(x, q_w, packed, s_k, bias, sx, qs, **kw),
                              flush),
                 plain_ms=median_ms(lambda: k8.int8_conv_plain(x, q_w, s_k, bias, sx, qs, **kw),
                                    flush, iters=3, warmup=1),
-                bound=bound(n * h * w * cin * 2 + cout * kk + n * ho * wo * cout * 2,
+                bound=bound(n * h * w * cin * x.element_size() + cout * kk + n * ho * wo * cout * 2,
                             2.0 * n * ho * wo * cout * kk, INT8_OPS),
                 library_ms=None, cudnn_bf16_ms=cudnn_ms))
         del x, q_w, packed, conv
@@ -393,8 +408,62 @@ def int8_kernel_phase(b, rng, flush, dev, cfg, card) -> list:
         phase(f"kernel int8_conv {r['shape']} (x{r['convs']}) B={b} {r['scheme']}: exact; "
               f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
               f"{r['bound'][0]:.4f} ms ({r['bound'][1]}, {100 * r['bound'][0] / r['ms']:.0f}% "
-              f"of it); cuDNN bf16 conv of the shape {r['cudnn_bf16_ms']:.4f} ms; {card}")
+              f"of it); cuDNN bf16 conv of the shape {r['cudnn_bf16_ms']:.4f} ms, kernel / "
+              f"cuDNN {r['ms'] / r['cudnn_bf16_ms']:.3f}; {card}")
+    for scheme in ("dynamic", "static"):
+        mine = [r for r in rows if r["scheme"] == scheme and "float32" not in r["shape"]]
+        total = sum(r["ms"] * r["convs"] for r in mine)
+        cudnn = sum(r["cudnn_bf16_ms"] * r["convs"] for r in mine)
+        limit = sum(r["bound"][0] * r["convs"] for r in mine)
+        slower = [r["shape"] for r in mine if r["ms"] > r["cudnn_bf16_ms"]]
+        phase(f"kernel int8_conv, the 28 convs of a batch of {b} ({scheme}): {total:.4f} ms, "
+              f"bound {limit:.4f} ms ({100 * limit / total:.0f}% of it), cuDNN bf16 {cudnn:.4f} "
+              f"ms (kernel / cuDNN {total / cudnn:.3f}); shapes slower than cuDNN's bf16 conv: "
+              f"{slower or 'none'}; {card}")
     return rows
+
+
+def int8_host_time(dev, cfg, card) -> float:
+    """Host time of one ``int8_conv`` call at batch 1 (the tower's 3x3 conv on
+    both eyes): the wrapper's checks, the plan lookup, the tensor map's
+    encoding and the launch, averaged over 200 calls between two syncs; and
+    of its C entry alone (the tensor map and the launch), called with the
+    same arguments."""
+    import ctypes
+
+    import torch
+
+    from hobot_stereonet_tpu_torch.ops.kernels import build
+    from hobot_stereonet_tpu_torch.ops.kernels import int8_conv as k8
+
+    c, k = cfg.model.feature_channels, cfg.model.cost_resolution_divisor
+    x = torch.zeros((2, H // k, W // k, c), dtype=torch.bfloat16, device=dev).permute(0, 3, 1, 2)
+    q_w = torch.ones((c, c, 3, 3), dtype=torch.int8, device=dev)
+    packed = k8.pack_weight(q_w)
+    s_k = torch.full((c,), 1e-3, device=dev)
+    bias = torch.zeros(c, device=dev)
+    s = torch.full((2,), 0.01, device=dev)
+    kw = dict(stride=1, divide=True, out_dtype=torch.bfloat16)
+    for _ in range(10):
+        out = k8.int8_conv(x, q_w, packed, s_k, bias, s, s, **kw)
+    args = k8.plan(2, c, H // k, W // k, c, 3, 1, torch.bfloat16, torch.bfloat16).args()
+    entry = (x.data_ptr(), packed.data_ptr(), s_k.data_ptr(), bias.data_ptr(), s.data_ptr(),
+             s.data_ptr(), out.data_ptr(), ctypes.addressof(args), 1, 1, build.stream_handle(x))
+    lib = build.library()
+    calls = 200
+    times = {}
+    for name, call in (("wrapper", lambda: k8.int8_conv(x, q_w, packed, s_k, bias, s, s, **kw)),
+                       ("C entry", lambda: build.check(k8.NAME, lib.hst_int8_conv(*entry)))):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(calls):
+            call()
+        times[name] = (time.perf_counter() - t) / calls * 1e6
+        torch.cuda.synchronize()
+    phase(f"kernel int8_conv host time at batch 1 (tower 3x3 on both eyes): "
+          f"{times['wrapper']:.2f} us a call over {calls} calls, of which its C entry alone "
+          f"(tensor map, launch) {times['C entry']:.2f} us; {card}")
+    return times["wrapper"]
 
 
 def px_stats(got, want) -> dict:
@@ -671,11 +740,13 @@ def main() -> int:
 
     hmma = sass("correlation_bf16_kernel", "HMMA")
     vec = sass("soft_argmin_vector_kernel", "LDG.128")
-    imma = min(sass(k, "IMMA") for k in ("int8_conv_kernel", "int8_conv_dense_kernel"))
-    if hmma <= 0 or vec <= 0 or imma <= 0:
+    igmma = min(sass(k, "IGMMA") for k in ("int8_conv_wgmma_kernel", "int8_conv_dense_kernel"))
+    tma = sass("int8_conv_wgmma_kernel", "UTMALDG")
+    if hmma <= 0 or vec <= 0 or igmma <= 0 or tma <= 0:
         raise AssertionError(f"expected HMMA in correlation_bf16_kernel ({hmma}), 128-bit "
-                             f"loads in soft_argmin_vector_kernel ({vec}) and IMMA (int8 "
-                             f"tensor-core) instructions in both int8 conv kernels ({imma})")
+                             f"loads in soft_argmin_vector_kernel ({vec}), IGMMA (warpgroup "
+                             f"int8 MMA) in both int8 conv kernels ({igmma}) and UTMALDG (TMA "
+                             f"loads) in int8_conv_wgmma_kernel ({tma})")
 
     # 3. kernels vs plain, at each batch -----------------------------------------
     rng = np.random.default_rng(0)
@@ -691,6 +762,7 @@ def main() -> int:
         rows += kernel_phase(b, rng, flush, dev, h, w, c, d, float(k), card)
     for b in BATCHES:
         rows += int8_kernel_phase(b, rng, flush, dev, cfg, card)
+    int8_host_time(dev, cfg, card)
     del flush
     # 4. reference: float32 network on the card vs the CPU ----------------------
     params = random_flax_params(cfg.model, seed=0)

@@ -19,9 +19,23 @@ channels-last memory) and int8 weights ``q_w`` [Cout, Cin, kh, kw]:
 scheme multiplies by the reciprocal and the epilogue fuses its multiply
 and add, because that is what XLA compiles the JAX code into
 (``numerics.py``).
+
+The kernel's launch plan (:func:`plan`: the slice of output channels a
+block keeps resident, the output tile, the rings of input stages and the
+shared-memory layout) and its weight layout (:func:`pack_weight`) are
+chosen here; ``csrc/int8_conv.cu`` reads them from :class:`PlanArgs`.  The
+kernel sizes its grid from the blocks the card keeps resident.
+
+NaN: the kernel's code for a NaN input is -127, as for -inf (``fmaxf``
+clips it); the plain version carries NaN through ``torch.clamp`` into every
+output its window reaches.  Everything else is bit-equal.
 """
 
 from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -33,6 +47,19 @@ NAME = "int8_conv"
 QMAX = 127.0
 _IN_DTYPES = (torch.float32, torch.bfloat16)
 
+SMEM_MAX = 232448             # shared memory one block may use on Hopper (227 KB)
+SMEM_SM = 233472              # shared memory of one SM (228 KB); 1 KB reserved per block
+TILE_ROWS, TILE_COLS = 4, 16  # one wgmma tile: 4 rows x 16 columns (M = 64); the dense
+                              # path's warpgroup takes two (8 rows) for up to 32 channels
+CONSUMER_WARPS = 8            # two warpgroups a block on the TMA path, one on the dense path
+PITCH = 48                    # bytes per pixel of the int8 tile (32 channels + 16 of padding)
+MAX_STAGES = 3                # input stages of a ring, at most (more measured no faster)
+N_SINGLE = (8, 16, 24, 32, 48, 64)   # wgmma N of a slice of at most 64 channels
+N_WIDE = 64                   # wgmma N of each instruction of a wider slice
+N_MAX = 192                   # widest slice of output channels resident in a block
+EPI_CHANNELS = 64             # channels of one epilogue pass through shared memory
+PLAN_VERSION = 2              # struct PlanArgs of csrc/int8_conv.cu checks it
+
 
 def same_pads(size: int, kernel: int, stride: int):
     """flax/XLA "SAME" padding (low, high) along one axis."""
@@ -41,21 +68,207 @@ def same_pads(size: int, kernel: int, stride: int):
     return total // 2, total - total // 2
 
 
+def _up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def output_slices(cout: int):
+    """(BN, slices): the output channels a block keeps resident (the wgmma
+    N, or a multiple of :data:`N_WIDE` for a wider slice) and how many
+    slices of BN cover ``cout``; rows past ``cout`` hold zero weights."""
+    if cout <= N_SINGLE[-1]:
+        return next(n for n in N_SINGLE if n >= cout), 1
+    slices = -(-cout // N_MAX)
+    return _up(-(-cout // slices), N_WIDE), slices
+
+
+def dense_input(cin: int) -> bool:
+    """Whether the conv takes the dense path (the first conv, Cin = 3):
+    taps packed 4 channels a pixel instead of 32-channel slices."""
+    return cin % 8 != 0
+
+
 def channels_per_tap(cin: int) -> int:
-    """Channels of one tap in the packed weights: ``Cin`` rounded up to 32
-    when ``Cin`` is a multiple of 8 (the kernel then loads 8 channels at a
-    time), else ``Cin`` itself (taps packed densely, loaded one by one)."""
-    return -(-cin // 32) * 32 if cin % 8 == 0 else cin
+    """Channels of one tap in the reduction: ``Cin`` rounded up to 32
+    (32-channel slices, one wgmma's depth) or, on the dense path, to 4
+    (one 32-bit register of an A fragment holds one tap of a pixel)."""
+    return _up(cin, 4 if dense_input(cin) else 32)
 
 
 def pack_weight(q_w: torch.Tensor) -> torch.Tensor:
-    """int8 [Cout, Cin, kh, kw] -> [Cout, K_pad]: the rows are
-    [kh, kw, channels_per_tap(Cin)] flattened, zero padded to a multiple of 32."""
+    """int8 [Cout, Cin, kh, kw] -> the kernel's weight layout.
+
+    The reduction index of a row is k = tap * channels_per_tap(Cin) +
+    channel (taps in (kh, kw) order), zero padded to K_pad, a multiple of
+    32.  Rows are padded with zeros to ``slices * BN``
+    (:func:`output_slices`).  The result is
+    [slices, K_pad / 32, BN / 8, 2, 8, 16]: for each slice of BN output
+    channels and each step of 32 along k, the wgmma core matrices of the
+    K-major B operand without swizzle (8 rows of 16 bytes, 128 bytes
+    each); the two 16-byte halves of k lie 128 bytes apart (the
+    descriptor's leading byte offset) and groups of 8 rows 256 bytes apart
+    (its stride byte offset).  A slice is one contiguous block that a
+    bulk copy places in shared memory as it is.
+    """
     cout, cin, kh, kw = q_w.shape
     cpt = channels_per_tap(cin)
+    bn, slices = output_slices(cout)
     w = F.pad(q_w.permute(0, 2, 3, 1), (0, cpt - cin)).reshape(cout, kh * kw * cpt)
-    k_pad = -(-w.shape[1] // 32) * 32
-    return F.pad(w, (0, k_pad - w.shape[1])).contiguous()
+    k_pad = _up(w.shape[1], 32)
+    w = F.pad(w, (0, k_pad - w.shape[1], 0, slices * bn - cout))
+    return w.reshape(slices, bn // 8, 8, k_pad // 32, 2, 16).permute(0, 3, 1, 4, 2, 5).contiguous()
+
+
+def packed_shape(cout: int, cin: int, kh: int, kw: int):
+    bn, slices = output_slices(cout)
+    return (slices, _up(kh * kw * channels_per_tap(cin), 32) // 32, bn // 8, 2, 8, 16)
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How the kernel runs one conv shape (all sizes in bytes or elements).
+
+    Each block keeps one slice of BN output channels resident (its weights,
+    ``w_bytes``, copied once) and walks output tiles of ``th`` x ``tw``
+    pixels with a static stride; the kernel launches as many blocks per
+    slice as the card keeps resident, at most ``tiles``.  For each tile it
+    loads the input halo (``ih`` x ``iw`` pixels) into a ring of ``stages``
+    stages: by TMA, ``bc`` channels at a time, into the ring of the consumer
+    warpgroup that takes the tile (``rings`` = 2: each warpgroup waits on
+    every phase of its own ring's barriers, in order), or on the dense path
+    by 16-byte copies along each halo row (``row_bytes``; one ring).  It
+    quantizes a stage into an int8 tile (``ih`` x ``aw`` pixels of
+    ``aq_pitch`` bytes, columns grouped by their remainder modulo the
+    stride, ``iwh`` to a group; two tiles: one for each of the TMA path's
+    warpgroups, or used in turn on the dense path) and runs the wgmma steps
+    from it.  The
+    slice's ``s_k`` and bias (at ``off_par``) and each tap's (or, on the
+    dense path, each k-step lane's) offset into the int8 tile (at
+    ``off_tab``) are staged in shared memory once per block.
+    """
+    N: int
+    H: int
+    W: int
+    Cin: int
+    Ho: int
+    Wo: int
+    Cout: int
+    KS: int
+    stride: int
+    pad_t: int
+    pad_l: int
+    x_bf16: int
+    y_bf16: int
+    dense: int
+    bn: int
+    n_slices: int
+    cpt: int
+    slices: int
+    k_blocks: int
+    taps: int
+    th: int
+    tw: int
+    ih: int
+    iw: int
+    iwh: int
+    aw: int
+    bc: int
+    rings: int
+    stages: int
+    stage_bytes: int
+    row_bytes: int
+    aq_pitch: int
+    aq_bytes: int
+    epi_pitch: int
+    w_bytes: int
+    off_stage: int
+    off_aq: int
+    off_epi: int
+    off_par: int
+    off_tab: int
+    off_bar: int
+    smem: int
+    tiles_h: int
+    tiles_w: int
+    tiles: int
+
+    def args(self) -> "PlanArgs":
+        return PlanArgs(PLAN_VERSION, ctypes.sizeof(PlanArgs), *dataclasses.astuple(self))
+
+
+class PlanArgs(ctypes.Structure):
+    """The plan as ``csrc/int8_conv.cu`` reads it: ``struct PlanArgs``, a
+    version and the struct's size (which the C entry checks), then the
+    fields of :class:`Plan` in the same order, all int32."""
+    _fields_ = [("version", ctypes.c_int), ("size", ctypes.c_int)] + [
+        (f.name, ctypes.c_int) for f in dataclasses.fields(Plan)]
+
+
+@functools.lru_cache(maxsize=256)
+def plan(n: int, cin: int, h: int, w: int, cout: int, k: int, stride: int,
+         x_dtype: torch.dtype, out_dtype: torch.dtype) -> Plan:
+    """The launch plan of one conv shape.
+
+    Raises ``ValueError`` if the rings the kernel needs do not fit in
+    :data:`SMEM_MAX`.
+    """
+    xb = 2 if x_dtype == torch.bfloat16 else 4
+    yb = 2 if out_dtype == torch.bfloat16 else 4
+    ho, wo = -(-h // stride), -(-w // stride)
+    dense = dense_input(cin)
+    cpt = channels_per_tap(cin)
+    taps = k * k
+    k_blocks = _up(taps * cpt, 32) // 32
+    bn, n_slices = output_slices(cout)
+    th, tw = TILE_ROWS * (2 if dense and bn <= 32 else 1), TILE_COLS
+    ih, iw = (th - 1) * stride + k, (tw - 1) * stride + k
+    iwh = -(-iw // stride)
+    aw = stride * iwh
+    if dense:
+        bc, slices, aq_pitch, rings = 0, 1, cpt, 1
+        row_bytes = _up(iw * cin * xb, 16) + 16     # a row's span, aligned down to 16 bytes
+    else:
+        bc, slices, aq_pitch, rings = min(32, cin), cpt // 32, PITCH, 2
+        row_bytes = iw * bc * xb
+    stage_bytes = _up(ih * row_bytes, 128)
+    aq_bytes = _up(ih * aw * aq_pitch, 128)
+    epi_pitch = min(bn, EPI_CHANNELS) * yb + 16
+    w_bytes = k_blocks * bn * 32
+    off_stage = _up(w_bytes, 128)
+    n_tab = 8 * k_blocks if dense else taps      # A-fragment offsets: per k-step unit or per tap
+    warps = CONSUMER_WARPS // 2 if dense else CONSUMER_WARPS
+    tail = warps * 16 * epi_pitch + 8 * bn + 4 * n_tab + 8 + 8 * (2 * rings * MAX_STAGES + 1)
+    fixed = off_stage + 2 * aq_bytes + tail
+    # As many stages as fit beside the blocks per SM the kernel is built for
+    # (two for slices of up to 64 channels, one for wider ones; eight of the
+    # dense path's smaller blocks), or else one block an SM: a block whose
+    # rings hold one stage in all cannot load ahead.
+    per_sm = 8 if dense else 2 if bn <= 64 else 1
+    stages = min(MAX_STAGES, (min(SMEM_MAX, SMEM_SM // per_sm - 1024) - fixed)
+                 // (rings * stage_bytes))
+    if rings * stages < 2:
+        stages = min(MAX_STAGES, (SMEM_MAX - fixed) // (rings * stage_bytes))
+    if stages < 1:
+        raise ValueError(f"{NAME}: no plan fits {SMEM_MAX} bytes of shared memory for "
+                         f"Cin {cin}, Cout {cout}, {k}x{k} stride {stride}, {x_dtype}")
+    off_aq = off_stage + rings * stages * stage_bytes
+    off_epi = off_aq + 2 * aq_bytes
+    off_par = off_epi + warps * 16 * epi_pitch      # the slice's s_k, then its bias
+    off_tab = off_par + 8 * bn
+    off_bar = _up(off_tab + 4 * n_tab, 8)
+    smem = off_bar + 8 * (2 * rings * stages + 1)
+    tiles_h, tiles_w = -(-ho // th), -(-wo // tw)
+    pt, pl = same_pads(h, k, stride)[0], same_pads(w, k, stride)[0]
+    return Plan(n, h, w, cin, ho, wo, cout, k, stride, pt, pl, int(xb == 2), int(yb == 2),
+                int(dense), bn, n_slices, cpt, slices, k_blocks, taps, th, tw, ih, iw, iwh, aw,
+                bc, rings, stages, stage_bytes, row_bytes, aq_pitch, aq_bytes, epi_pitch,
+                w_bytes, off_stage, off_aq, off_epi, off_par, off_tab, off_bar, smem, tiles_h,
+                tiles_w, n * tiles_h * tiles_w)
+
+
+@functools.lru_cache(maxsize=256)
+def _plan_args(*key) -> PlanArgs:
+    return plan(*key).args()
 
 
 def _check(x, q_w, s_k, bias, sx, qs, out_dtype) -> None:
@@ -113,28 +326,29 @@ def int8_conv(x: torch.Tensor, q_w: torch.Tensor, packed: torch.Tensor, s_k: tor
     _check(x, q_w, s_k, bias, sx, qs, out_dtype)
     n, cin, h, w = x.shape
     cout, _, kh, kw = q_w.shape
-    cpt = channels_per_tap(cin)
-    if packed.dtype != torch.int8 or packed.shape != (cout, -(-kh * kw * cpt // 32) * 32):
+    if kh != kw or stride not in (1, 2):
+        raise ValueError(f"{NAME}: square kernels at stride 1 or 2 only, got "
+                         f"{kh}x{kw} stride {stride}")
+    if packed.dtype != torch.int8 or tuple(packed.shape) != packed_shape(cout, cin, kh, kw):
         raise ValueError(f"{NAME}: packed weights {tuple(packed.shape)} {packed.dtype} "
                          f"are not pack_weight of {tuple(q_w.shape)}")
     if cout % 8:
         raise ValueError(f"{NAME}: Cout must be a multiple of 8, got {cout}")
     if not x.is_contiguous(memory_format=torch.channels_last):
         raise ValueError(f"{NAME}: the input must be channels-last contiguous")
-    if cin % 8 == 0 and x.data_ptr() % 16:
+    if not dense_input(cin) and x.data_ptr() % 16:
         raise ValueError(f"{NAME}: the input must be 16-byte aligned")
     tensors = (x, packed, s_k, bias, sx, qs)
     if any(t.device != x.device for t in tensors) or not all(
             t.is_contiguous() for t in tensors[1:]):
         raise ValueError(f"{NAME}: every tensor must be contiguous on {x.device}")
-    ho, wo = -(-h // stride), -(-w // stride)
-    out = torch.empty((n, ho, wo, cout), dtype=out_dtype, device=x.device).permute(0, 3, 1, 2)
+    args = _plan_args(n, cin, h, w, cout, kh, stride, x.dtype, out_dtype)
+    out = torch.empty((n, args.Ho, args.Wo, cout), dtype=out_dtype,
+                      device=x.device).permute(0, 3, 1, 2)
     err = build.library().hst_int8_conv(
         x.data_ptr(), packed.data_ptr(), s_k.data_ptr(), bias.data_ptr(), sx.data_ptr(),
-        qs.data_ptr(), out.data_ptr(), n, h, w, cin, ho, wo, cout, kh, kw, stride,
-        same_pads(h, kh, stride)[0], same_pads(w, kw, stride)[0], cpt, packed.shape[1],
-        int(sx.numel() != 1), int(divide), int(x.dtype == torch.bfloat16),
-        int(out_dtype == torch.bfloat16), build.stream_handle(x))
+        qs.data_ptr(), out.data_ptr(), ctypes.addressof(args), int(sx.numel() != 1), int(divide),
+        build.stream_handle(x))
     build.check(NAME, err)
     build.launch_counts[NAME] += 1
     return out

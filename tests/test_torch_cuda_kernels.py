@@ -266,3 +266,158 @@ def test_int8_conv_kernel_exact(device, n, cin, cout, k, stride, h, w, x_dtype, 
     assert got.shape == want.shape == (n, cout, -(-h // stride), -(-w // stride))
     assert got.is_contiguous(memory_format=torch.channels_last)
     assert torch.equal(got, want), (got.float() - want.float()).abs().max().item()
+
+
+@pytest.mark.parametrize("static", [False, True])
+@pytest.mark.parametrize("n,cin,cout,k,stride,h,w,x_dtype,out_dtype,offset", [
+    (1, 32, 32, 3, 1, 18, 34, torch.bfloat16, torch.bfloat16, 0),     # one image
+    (40, 32, 32, 3, 1, 9, 12, torch.bfloat16, torch.bfloat16, 0),     # walks cross images
+    (2, 32, 32, 3, 1, 45, 37, torch.bfloat16, torch.bfloat16, 0),     # ragged tiles
+    (2, 32, 32, 5, 2, 45, 37, torch.bfloat16, torch.float32, 0),      # ragged, stride 2
+    (1, 64, 576, 3, 1, 90, 160, torch.bfloat16, torch.bfloat16, 0),   # the mask head
+    (2, 64, 24, 3, 1, 90, 160, torch.bfloat16, torch.bfloat16, 0),    # aggregation Conv_0
+    (2, 56, 64, 3, 1, 45, 37, torch.bfloat16, torch.bfloat16, 0),     # zero-filled channels
+    (2, 3, 32, 5, 2, 17, 30, torch.bfloat16, torch.bfloat16, 0),      # rows TMA cannot take
+    (2, 3, 32, 5, 2, 17, 30, torch.float32, torch.bfloat16, 0),
+    (2, 3, 32, 5, 2, 17, 30, torch.float32, torch.bfloat16, 1),       # input not 16-byte aligned
+    (2, 32, 200, 3, 1, 12, 20, torch.bfloat16, torch.bfloat16, 0),    # slices of 128 past Cout
+    (2, 32, 40, 3, 1, 12, 20, torch.float32, torch.float32, 0),       # a slice of 48 past Cout
+    (2, 32, 32, 5, 2, 36, 64, torch.float32, torch.float32, 0),       # the largest stages
+])
+def test_int8_conv_kernel_edges(device, n, cin, cout, k, stride, h, w, x_dtype, out_dtype,
+                                offset, static):
+    """Cases the persistent, TMA-fed kernel could get wrong: one image, many
+    images with a scale each, tiles past the output's edge, wide and narrow
+    slices of output channels, zero-filled channels, the dense path's
+    unaligned rows and input, float32 stages of a 5x5 stride-2 halo."""
+    rng = np.random.default_rng(6)
+    x, q_w, s_k, bias = _int8_case(rng, n, cin, cout, k, h, w, x_dtype, device)
+    if offset:
+        flat = torch.zeros(x.numel() + offset, dtype=x_dtype, device=device)
+        flat[offset:] = x.permute(0, 2, 3, 1).reshape(-1)
+        x = flat[offset:].view(n, h, w, cin).permute(0, 3, 1, 2)
+        assert x.data_ptr() % 16 and x.is_contiguous(memory_format=torch.channels_last)
+    if static:
+        sx = torch.tensor([0.05], device=device)
+        qs = torch.tensor([1.0], device=device) / sx
+    else:
+        sx = qs = torch.from_numpy(rng.uniform(0.01, 0.05, n).astype(np.float32)).to(device)
+    n0 = build.launch_counts["int8_conv"]
+    kw = dict(stride=stride, divide=not static, out_dtype=out_dtype)
+    got = int8_conv(x, q_w, pack_weight(q_w), s_k, bias, sx, qs, **kw)
+    torch.cuda.synchronize()
+    assert build.launch_counts["int8_conv"] == n0 + 1
+    want = int8_conv_plain(x, q_w, s_k, bias, sx, qs, **kw)
+    assert got.shape == want.shape == (n, cout, -(-h // stride), -(-w // stride))
+    assert torch.equal(got, want), (got.float() - want.float()).abs().max().item()
+
+
+@pytest.mark.parametrize("cin,cout,k,stride", [(64, 64, 3, 1), (32, 32, 5, 2), (56, 576, 3, 1)])
+def test_int8_conv_kernel_large_accumulators(device, cin, cout, k, stride):
+    """Every code at +-127 against weights of +-127: accumulators past 2^22,
+    where float32 no longer holds every integer, rounded as the plain
+    version rounds them."""
+    n, h, w = 2, 12, 20
+    x = torch.full((n, h, w, cin), 10.0, device=device)
+    x[1] = -10.0
+    x = x.permute(0, 3, 1, 2)
+    q_w = torch.full((cout, cin, k, k), 127, dtype=torch.int8, device=device)
+    q_w[cout // 2:] = -127
+    s_k = torch.full((cout,), 1e-3, device=device)
+    bias = torch.zeros(cout, device=device)
+    sx = qs = torch.tensor([0.01, 0.02], device=device)
+    kw = dict(stride=stride, divide=True, out_dtype=torch.float32)
+    got = int8_conv(x, q_w, pack_weight(q_w), s_k, bias, sx, qs, **kw)
+    want = int8_conv_plain(x, q_w, s_k, bias, sx, qs, **kw)
+    torch.cuda.synchronize()
+    assert 127 * 127 * cin * k * k >= 1 << 22
+    assert torch.equal(got, want), (got - want).abs().max().item()
+
+
+def _identity_case(n, cin, k, h, w, x, device):
+    """x [N, H, W, Cin] through the centre tap's identity (Cout = Cin
+    rounded up to 8), s_k = sx = 1 and no bias: each output is the code of
+    one input value, as float32."""
+    cout = -(-cin // 8) * 8
+    q_w = torch.zeros((cout, cin, k, k), dtype=torch.int8)
+    q_w[torch.arange(cin), torch.arange(cin), k // 2, k // 2] = 1
+    x = x.to(device).permute(0, 3, 1, 2)
+    return x, q_w.to(device), torch.ones(cout, device=device), torch.zeros(cout, device=device)
+
+
+QUOTIENT_CASES = [
+    (32, 3, 1, torch.float32),      # the TMA path's quantize_stage
+    (64, 3, 1, torch.bfloat16),
+    (3, 3, 1, torch.float32),       # the dense path's quantize_rows
+    (3, 5, 2, torch.bfloat16),      # the tower's first conv
+]
+
+
+@pytest.mark.parametrize("cin,k,stride,x_dtype", QUOTIENT_CASES)
+def test_int8_conv_kernel_near_half_integer_quotients(device, cin, k, stride, x_dtype):
+    """The dynamic scheme divides by multiplying with RN(1/s) and places a
+    value whose quotient lies within 4e-5 of a half-integer exactly
+    (``quantize_n``, ``quotient_code``).  Values at and within a few ulps
+    (of the input's type) of every half-integer quotient, for a scale per
+    sample (powers of two among them: exact ties), are coded as
+    ``int8_conv_plain`` codes them, bit for bit."""
+    rng = np.random.default_rng(7)
+    scales = np.array([0.0123, 1 / 3, 2.0 ** -7, 7.77e-3, 1.0, 0.5 ** 20, 0.75 * 2.0 ** -5,
+                       0.625 * 2.0 ** -3], np.float32)
+    n, h, w = scales.size, 18, 34
+    half = np.arange(-128, 128, dtype=np.float32) + np.float32(0.5)
+    x = np.empty((n, h * w * cin), np.float32)
+    for i, s in enumerate(scales):
+        v = torch.from_numpy(half * s).to(x_dtype)
+        near = [v]
+        for d in (1, -1):
+            u = v
+            for _ in range(4):
+                u = _step(u, d)
+                near.append(u)
+        x[i] = rng.permutation(np.resize(torch.cat(near).float().numpy(), x.shape[1]))
+    q = x / scales[:, None]
+    close = np.mean(np.abs(q - np.rint(q)) > 0.49996)
+    assert close > (0.9 if x_dtype == torch.float32 else 0.1)    # they reach the exact path
+    x = torch.from_numpy(x.reshape(n, h, w, cin)).to(x_dtype)
+    x, q_w, s_k, bias = _identity_case(n, cin, k, h, w, x, device)
+    sx = torch.ones(n, device=device)
+    qs = torch.from_numpy(scales).to(device)
+    kw = dict(stride=stride, divide=True, out_dtype=torch.float32)
+    got = int8_conv(x, q_w, pack_weight(q_w), s_k, bias, sx, qs, **kw)
+    want = int8_conv_plain(x, q_w, s_k, bias, sx, qs, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), int((got != want).sum())
+
+
+def _step(u, d):
+    """The values of u's type next to u (nonzero) towards d * inf."""
+    bits = u.view(torch.int16 if u.dtype == torch.bfloat16 else torch.int32)
+    return torch.where((bits >= 0) == (d > 0), bits + 1, bits - 1).view(u.dtype)
+
+
+@pytest.mark.parametrize("static", [False, True])
+@pytest.mark.parametrize("cin,k,stride,x_dtype", QUOTIENT_CASES)
+def test_int8_conv_kernel_reads_nan_as_minus_inf(device, cin, k, stride, x_dtype, static):
+    """NaN is the one input where the kernel and ``int8_conv_plain``
+    differ: the kernel codes it -127, as it codes -inf (``fmaxf`` clips
+    it), where the plain version carries NaN into the output.  So the
+    kernel on x equals the plain version on x with NaN replaced by -inf."""
+    rng = np.random.default_rng(8)
+    n, h, w = 2, 12, 20
+    x = (2.0 * rng.standard_normal((n, h, w, cin))).astype(np.float32)
+    x[rng.random(x.shape) < 0.1] = np.nan
+    x[0, 0, 0, 0], x[1, 1, 1, 0] = np.inf, -np.inf
+    x = torch.from_numpy(x).to(x_dtype)
+    x, q_w, s_k, bias = _identity_case(n, cin, k, h, w, x, device)
+    if static:
+        sx, qs = torch.ones(1, device=device), torch.tensor([40.0], device=device)
+    else:
+        sx, qs = torch.ones(n, device=device), torch.tensor([0.02, 0.03], device=device)
+    kw = dict(stride=stride, divide=not static, out_dtype=torch.float32)
+    got = int8_conv(x, q_w, pack_weight(q_w), s_k, bias, sx, qs, **kw)
+    plain = int8_conv_plain(x, q_w, s_k, bias, sx, qs, **kw)
+    want = int8_conv_plain(x.masked_fill(x.isnan(), -np.inf), q_w, s_k, bias, sx, qs, **kw)
+    torch.cuda.synchronize()
+    assert plain.isnan().any() and not got.isnan().any()
+    assert torch.equal(got, want), int((got != want).sum())
