@@ -62,9 +62,26 @@ Phases, each printed with its elapsed seconds:
      (with the batch-32 frames/s of each); ``StereoEngine(Config())`` (RGB)
      and the int8 engines serving 32 frames at 720p; ``measure_engine_fps``
      at batches 1 and 32 in int8 and int8 static; a ``torch.profiler``
-     summary of one int8 batch of 32.
+     summary of one int8 batch of 32;
+ 11. the CLASSIC StereoNet (``model="classic"``, the trained weights of
+     ``checkpoints/frontier_CLASSIC`` from ``reference/classic_params.npz``,
+     bf16, RGB input): the D-leading soft-argmin kernel against its plain
+     version at B = 8 and 32 on the [B, 24, 90, 160] bf16 cost, timed beside
+     its bound; float32 on the card against the CPU and against the stored
+     JAX output on the two 256x512 scenes; bf16 against the stored JAX
+     outputs on the scenes and the 720p frame; the held-out EPE over the 120
+     scenes (0.9374 +- 0.0775 px), paired against the stored JAX EPEs;
+     ``StereoEngine(model="classic")`` with ``device_microbatch=8`` serving 32
+     frames at 720p (streamed == synchronous, the kernel launched once per
+     chunk), microbatched against the whole batch; ``measure_engine_fps`` at
+     batches 1 and 32 with and without ``stage_timing`` (and batch 32 with
+     one batch in flight), with the caching allocator's retries and peak
+     memory; a ``torch.profiler`` summary of one ring-fed batch of 1 and of
+     32; each conv's time at a chunk of 8, the 3-D conv in NCDHW against
+     ``channels_last_3d``, and a 12-channel conv against the same padded to
+     16 channels.
 
-Phases 7, 8 and 10 reset the kernels' launch counts just before they drive
+Phases 7, 8, 10 and 11 reset the kernels' launch counts just before they drive
 their path and fail if a kernel of it was not launched.  The held-out
 scenes are rendered on a host thread from the start, beside phases 2-6.
 
@@ -174,6 +191,25 @@ def kernel_report(lib: Path, log: str) -> dict:
     """
     from hobot_stereonet_tpu_torch.ops.kernels import build
 
+    def template_args(rest: str) -> str:
+        # I <arg>* E: a literal L<type><value>E, a name <length><chars>, or
+        # a builtin type's letter.
+        if not rest.startswith("I"):
+            return ""
+        i, args = 1, []
+        while i < len(rest) and rest[i] != "E":
+            m = re.match(r"L[a-z]+(\d+)E|(\d+)|([a-z])", rest[i:])
+            if m is None:
+                break
+            if m.group(2):
+                n, j = int(m.group(2)), i + len(m.group(2))
+                args.append(rest[j:j + n].removeprefix("__nv_"))
+                i = j + n
+            else:
+                args.append(m.group(1) or m.group(3))
+                i += m.end()
+        return f"<{','.join(args)}>"
+
     def short(mangled: str) -> str:
         # Itanium mangling: a name is its length, then its characters.  An
         # anonymous namespace adds a hashed prefix, so try every digit run.
@@ -181,8 +217,7 @@ def kernel_report(lib: Path, log: str) -> dict:
             start = m.start() + len(m.group(1))
             ident = mangled[start:start + int(m.group(1))]
             if ident.endswith("_kernel") and re.fullmatch(r"[A-Za-z_]\w*", ident):
-                t = re.match(r"I(?:Li(\d+)E|\d+__nv_(bfloat16)E|(\w))", mangled[start + len(ident):])
-                return ident + (f"<{next(g for g in t.groups() if g)}>" if t else "")
+                return ident + template_args(mangled[start + len(ident):])
         return mangled
 
     report: dict = {}
@@ -497,10 +532,10 @@ def on_path(names, fn):
     return out, counts
 
 
-def profile_summary(prof) -> tuple:
+def profile_summary(prof, top: int = 10) -> tuple:
     """From a ``torch.profiler`` run: (device-busy share of the traced
-    window, total device time in ms, the ten device kernels and copies with
-    the most device time as (name, ms, calls))."""
+    window, total device time in ms, the ``top`` device kernels and copies
+    with the most device time as (name, ms, calls))."""
     def on_device(e) -> bool:
         return str(getattr(e, "device_type", "")).endswith("CUDA")
 
@@ -522,7 +557,7 @@ def profile_summary(prof) -> tuple:
                      key=lambda a: a.device_time_total, reverse=True)
     total = sum(a.device_time_total for a in kernels) / 1e3
     return (busy / span if span > 0 else 0.0, total,
-            [(a.key, a.device_time_total / 1e3, a.count) for a in kernels[:10]])
+            [(a.key, a.device_time_total / 1e3, a.count) for a in kernels[:top]])
 
 
 def serve_frames(eng, feed) -> list:
@@ -680,6 +715,261 @@ def int8_and_rgb_phase(ctx: dict) -> dict:
         for name, ms, calls in top:
             phase(f"profile:   {ms:9.3f} ms  {calls:5d} calls  {name[:110]}")
     return launches
+
+
+def classic_kernel_row(b, rng, flush, dev, h, w, d, scale, card) -> dict:
+    """The D-leading soft-argmin against its plain version at batch ``b`` on
+    the CLASSIC path's cost [b, D, h, w] bf16; its time beside its bound."""
+    import numpy as np
+    import torch
+
+    from hobot_stereonet_tpu_torch.ops.kernels import correlation as kc
+
+    cost = torch.from_numpy(3.0 * rng.standard_normal((b, d, h, w), np.float32)
+                            ).bfloat16().to(dev)
+    got_d, got_c = kc.soft_argmin_cost(cost, scale)
+    want_d, want_c = kc.soft_argmin_cost_plain(cost, scale)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got_d, want_d, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(got_c, want_c, rtol=1e-5, atol=1e-6)
+    err = max((got_d - want_d).abs().max().item(), (got_c - want_c).abs().max().item())
+    row = dict(
+        name=kc.SOFT_ARGMIN_COST, route="cuda", source="hobot_stereonet_tpu_torch/csrc/soft_argmin.cu",
+        replaces="hobot_stereonet_tpu/ops/pallas/correlation.py:124", batch=b,
+        tolerance="f32 rounding (rtol 1e-5, atol 1e-4 px / 1e-6)", max_abs_err=err,
+        ms=median_ms(lambda: kc.soft_argmin_cost(cost, scale), flush),
+        ms_read_flush=median_ms(lambda: kc.soft_argmin_cost(cost, scale), flush, read_flush=True),
+        plain_ms=median_ms(lambda: kc.soft_argmin_cost_plain(cost, scale), flush),
+        bound=bound(b * d * h * w * 2 + 2 * b * h * w * 4, 5.0 * b * h * w * d),
+        library_ms=None)
+    phase(f"kernel {row['name']} B={b} (cost [{b},{d},{h},{w}] bf16): max |err| {err:.3g} "
+          f"({row['tolerance']}), kernel {row['ms']:.4f} ms ({row['ms_read_flush']:.4f} ms after "
+          f"a read flush), plain {row['plain_ms']:.4f} ms, bound {row['bound'][0]:.4f} ms "
+          f"({row['bound'][1]}, {100 * row['bound'][0] / row['ms']:.0f}% of it); {card}")
+    return row
+
+
+def classic_phase(ctx: dict) -> tuple:
+    """Phase 11, the CLASSIC StereoNet; returns (kernel rows, launches of
+    the D-leading soft-argmin on the engine's path)."""
+    import numpy as np
+    import torch
+
+    from hobot_stereonet_tpu_torch import reference
+    from hobot_stereonet_tpu_torch.config import Config, StereoNetConfig
+    from hobot_stereonet_tpu_torch.data.stream import DeviceFrameRing
+    from hobot_stereonet_tpu_torch.models import StereoNet
+    from hobot_stereonet_tpu_torch.models.layers import cast_convs
+    from hobot_stereonet_tpu_torch.ops import preprocess as pp
+    from hobot_stereonet_tpu_torch.ops.kernels import build
+    from hobot_stereonet_tpu_torch.runtime.benchmark import measure_engine_fps
+    from hobot_stereonet_tpu_torch.runtime.engine import StereoEngine
+    from hobot_stereonet_tpu_torch.runtime.evaluate import evaluate_dataset
+    from hobot_stereonet_tpu_torch.runtime.weights import from_flax_params
+    from hobot_stereonet_tpu_torch.utils.profiling import device_trace
+
+    dev, card, rng, heldout = ctx["dev"], ctx["card"], ctx["rng"], ctx["heldout"]
+    t = time.monotonic()
+    mcfg = StereoNetConfig()
+    k = mcfg.cost_resolution_divisor
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    rows = [classic_kernel_row(b, rng, flush, dev, H // k, W // k, mcfg.num_disparities_coarse,
+                               float(k), card) for b in BATCHES]
+    del flush
+
+    # The trained weights against the stored JAX outputs (RGB input).
+    params = reference.load_params(reference.CLASSIC_PARAMS_NPZ)
+    stored = reference.load_outputs(reference.CLASSIC_OUTPUTS_NPZ)
+    rgb = Config().preprocess
+    scenes = [heldout[i] for i in reference.SCENES]
+
+    def net(dtype, device):
+        c = dataclasses.replace(mcfg, compute_dtype=dtype)
+        m = StereoNet(c, device=device)
+        m.load_state_dict(from_flax_params(params, c, "classic"))
+        return cast_convs(m, dtype).eval()
+
+    def run_scenes(m, device):
+        x = torch.cat([pp.rgb_pair_to_model_input(s.left, s.right, rgb, device) for s in scenes])
+        with torch.inference_mode():
+            o = m(*pp.split_model_input(x))
+        return o["disparity"].cpu().numpy(), o["confidence"].cpu().numpy()
+
+    build.reset_launch_counts()
+    d32, c32 = run_scenes(net(torch.float32, dev), dev)
+    if build.launch_counts["soft_argmin_cost"] != 1:
+        raise AssertionError(f"CLASSIC on the card: launches {dict(build.launch_counts)}")
+    dcpu, ccpu = run_scenes(net(torch.float32, "cpu"), "cpu")
+    card_cpu = (float(np.abs(d32 - dcpu).max()), float(np.abs(c32 - ccpu).max()))
+    jax32 = px_stats(d32, stored["f32_disparity"])
+    jax32_conf = float(np.abs(c32 - stored["f32_confidence"]).max())
+    phase(f"classic: float32 on the card vs the port on the CPU, 2 held-out scenes at 256x512: "
+          f"disparity max |err| {card_cpu[0]:.3g} px (limit 1e-3), confidence {card_cpu[1]:.3g} "
+          f"(limit 1e-4); vs JAX float32: {jax32} (limits median 1e-4, max 3e-3 px, fault C5), "
+          f"confidence {jax32_conf:.3g} (limit 1e-4)")
+    if not (card_cpu[0] <= 1e-3 and card_cpu[1] <= 1e-4 and jax32["median"] <= 1e-4
+            and jax32["max"] <= 3e-3 and jax32_conf <= 1e-4):
+        raise AssertionError("CLASSIC float32 on the card disagrees")
+    net16 = net(torch.bfloat16, dev)
+    d16, c16 = run_scenes(net16, dev)
+    st = px_stats(d16, stored["bf16_disparity"])
+    conf16 = float(np.abs(c16 - stored["bf16_confidence"]).max())
+    check_bf16("classic trained bf16 scenes", st)
+    frame = torch.from_numpy(reference.frame_720p())[None].to(dev)
+    with torch.inference_mode():
+        x = pp.nv12_ingest(frame, H, 2 * W, rgb)
+        d720 = net16(*pp.split_model_input(x))["disparity"][0].cpu().numpy()
+    st720 = px_stats(d720, stored["bf16_720p_disparity"])
+    check_bf16("classic trained bf16 720p", st720)
+    phase(f"classic: bf16 on the card vs JAX, 2 scenes: {st}, confidence max |err| {conf16:.3g} "
+          f"(limit 0.03); the 720p frame: {st720} ({time.monotonic() - t:.1f} s)")
+    if conf16 > 0.03:
+        raise AssertionError(f"CLASSIC bf16 confidence {conf16}")
+
+    # Held-out accuracy in bf16, paired against the stored JAX EPEs.
+    t = time.monotonic()
+    res, counts = on_path(["soft_argmin_cost"], lambda: evaluate_dataset(
+        "classic", params, heldout, Config(), device=dev))
+    jax_epe = stored["heldout_epe"]
+    delta = np.asarray(res.per_frame_epe) - jax_epe
+    ci = 1.96 * delta.std(ddof=1) / np.sqrt(len(delta))
+    lo, hi = (reference.CLASSIC_HELDOUT_EPE_PX - reference.CLASSIC_HELDOUT_EPE_CI95_PX,
+              reference.CLASSIC_HELDOUT_EPE_PX + reference.CLASSIC_HELDOUT_EPE_CI95_PX)
+    phase(f"classic accuracy: bf16 on the card over {res.n_frames} held-out scenes: EPE "
+          f"{res.epe:.4f} px (must lie in [{lo:.4f}, {hi:.4f}]), D1 {res.d1_all:.4f}; paired "
+          f"per-scene EPE - JAX's: mean {delta.mean():+.5f} +- {ci:.5f} px (95 %), max |.| "
+          f"{np.abs(delta).max():.4f} (JAX mean {jax_epe.mean():.4f}, D1 "
+          f"{float(stored['heldout_d1']):.4f}); launches {counts} ({time.monotonic() - t:.1f} s)")
+    if not lo <= res.epe <= hi:
+        raise AssertionError(f"CLASSIC held-out EPE {res.epe} outside [{lo}, {hi}]")
+
+    # The engine: 32 frames at 720p, microbatch 8, streamed == synchronous;
+    # the microbatched pipeline against the whole batch on rendered scenes.
+    t = time.monotonic()
+    ccfg = dataclasses.replace(Config(), engine=dataclasses.replace(
+        Config().engine, device_microbatch=8))
+    eng = StereoEngine(ccfg, params=params, emit_confidence=True, model="classic")
+    eng.warmup(buckets=[N_FRAMES])
+    feed = rng.integers(0, 256, (N_FRAMES, 3 * H * W), dtype=np.uint8)
+    results, launches = on_path(("nv12_ingest", "soft_argmin_cost"),
+                                lambda: serve_frames(eng, feed))
+    if eng.metrics.dispatch_batch.n != 1 or launches["soft_argmin_cost"] != N_FRAMES // 8:
+        raise AssertionError(f"classic engine: {eng.metrics.dispatch_batch.summary()}, "
+                             f"launches {launches}")
+    with torch.inference_mode():
+        sync = [o.cpu().numpy() for o in eng.pipeline(torch.from_numpy(feed).to(dev))[:3]]
+    for r in results:
+        for name, got, want in zip(("disparity", "depth_m", "confidence"),
+                                   (r.disparity, r.depth_m, r.confidence), sync):
+            if not np.array_equal(got, want[r.index]):
+                raise AssertionError(f"classic frame {r.index}: streamed {name} differs from "
+                                     "the synchronous pipeline")
+    ring = DeviceFrameRing(height=H, width=W, ring_size=4, seed=1, device=dev)
+    slots = [i % ring.data.shape[0] for i in range(N_FRAMES)]
+    with torch.inference_mode():
+        chunked = eng.pipeline(ring.data[slots])[0].cpu().numpy()
+        whole = StereoEngine(Config(), params=params, model="classic").pipeline(
+            ring.data[slots])[0].cpu().numpy()
+    micro = px_stats(chunked, whole)
+    micro["bit_equal"] = float(np.mean(chunked == whole))
+    check_bf16("classic device_microbatch=8 vs the whole batch", micro)
+    phase(f"classic engine: {N_FRAMES} frames of {W}x{H} (RGB, bf16, device_microbatch=8) in "
+          f"one dispatch, finite, streamed == synchronous bit for bit; launches {launches}; "
+          f"microbatch 8 vs the whole batch of {N_FRAMES} (4 rendered scenes): {micro} "
+          f"({time.monotonic() - t:.1f} s)")
+    del eng, results, sync, chunked, whole
+
+    # The benchmark surface, with the caching allocator's retries (a retry
+    # frees cached blocks and synchronizes) and peak memory of each run;
+    # batch 32 also with one batch in flight.
+    runs = [(st, b, nb, 4) for st in (False, True) for b, nb in BENCH_BATCHES.items()]
+    for stage_timing, b, nb, inflight in runs + [(False, N_FRAMES, BENCH_BATCHES[N_FRAMES], 1)]:
+        t = time.monotonic()
+        retries = torch.cuda.memory_stats(dev).get("num_alloc_retries", 0)
+        torch.cuda.reset_peak_memory_stats(dev)
+        out, counts = on_path(("nv12_ingest", "soft_argmin_cost"), lambda: measure_engine_fps(
+            model="classic", params=params, model_cfg=mcfg, preprocess_cfg=rgb, batch=b,
+            n_batches=nb, stage_timing=stage_timing, device_microbatch=8, inflight=inflight,
+            ring_size=2, height=H, width=W))
+        retries = torch.cuda.memory_stats(dev).get("num_alloc_retries", 0) - retries
+        phase(f"bench classic: measure_engine_fps batch {b}, stage_timing={stage_timing}, "
+              f"inflight={inflight}: {out}; launches {counts}; allocator retries {retries}, peak "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; {card} "
+              f"({time.monotonic() - t:.1f} s)")
+
+    # One ring-fed batch of 32 under the profiler, after one unprofiled.
+    pcfg = dataclasses.replace(ccfg, engine=dataclasses.replace(ccfg.engine, fetch_results=False))
+    eng = StereoEngine(pcfg, params=params, model="classic")
+    eng.warmup(buckets=[1, N_FRAMES], ring=ring)
+    for b in (1, N_FRAMES):
+        with device_trace(str(ctx["log"] / f"classic_batch{b}")) as prof:
+            _, event = eng._launch((ring, slots[:b]))
+            eng._wait(event)
+        busy, total, top = profile_summary(prof, top=16 if b > 1 else 6)
+        phase(f"profile classic: one ring-fed batch of {b} at {W}x{H}, microbatch 8: device "
+              f"busy {100 * busy:.1f} % of the traced window, {total:.3f} ms of device time; the "
+              f"largest kernels and copies: {card}")
+        for name, ms, calls in top:
+            phase(f"profile:   {ms:9.3f} ms  {calls:5d} calls  {name[:110]}")
+    conv_probe(dev, eng.model, card)
+    return rows, launches["soft_argmin_cost"]
+
+
+def conv_probe(dev, net, card) -> None:
+    """cuDNN's bf16 convs of CLASSIC (``net``, on the card) at one chunk of
+    8 frames at 720p: each conv fed the input it gets in the network (its
+    median time over 5 calls); then the 3-D
+    aggregation conv in NCDHW against ``channels_last_3d`` (the layout's
+    cost) and a full-resolution 12-channel dilated conv against the same
+    with the channels zero-padded to 16 (whether cuDNN then takes its
+    tensor-core kernels)."""
+    import torch
+    import torch.nn.functional as F
+
+    convs = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args, name=name: convs.append((name, mod, args[0].clone(
+            memory_format=torch.preserve_format))))
+        for name, m in net.named_modules() if isinstance(m, (torch.nn.Conv2d, torch.nn.Conv3d))]
+    frames = torch.rand((8, H, W, 3), device=dev) * 2 - 1
+    try:
+        with torch.inference_mode():
+            net(frames, torch.roll(frames, -3, 2))
+    finally:
+        for h in hooks:
+            h.remove()
+    del frames
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    total = 0.0
+    for name, mod, x in convs:
+        with torch.inference_mode():
+            ms = median_ms(lambda: mod(x), flush, iters=5, warmup=2)
+        total += ms
+        dil = mod.dilation[0]
+        phase(f"classic conv: {name} {mod.in_channels}->{mod.out_channels}"
+              f"{f' dilation {dil}' if dil > 1 else ''} on {list(x.shape)}: {ms:.3f} ms")
+    phase(f"classic conv: the {len(convs)} convs of a chunk of 8 (each with its input's copies "
+          f"and casts): {total:.3f} ms; {card}")
+    del convs
+    k = net.cfg.cost_resolution_divisor
+    c, d = net.cfg.aggregation_channels, net.cfg.num_disparities_coarse
+    cases = [  # label, x shape, w shape, dilation, memory format
+        ("conv3d 32->32 3x3x3", (8, c, d, H // k, W // k), (c, c, 3, 3, 3), 1,
+         torch.channels_last_3d),
+        ("same in NCDHW", (8, c, d, H // k, W // k), (c, c, 3, 3, 3), 1, torch.contiguous_format),
+        ("conv2d 12->12 3x3 dilation 2", (8, 12, H, W), (12, 12, 3, 3), 2, torch.channels_last),
+        ("same, channels zero-padded to 16", (8, 16, H, W), (16, 16, 3, 3), 2,
+         torch.channels_last),
+    ]
+    for label, xs, ws, dil, fmt in cases:
+        x = torch.randn(xs, device=dev).bfloat16().contiguous(memory_format=fmt)
+        wt = (torch.randn(ws, device=dev) * 0.05).bfloat16().contiguous(memory_format=fmt)
+        conv = F.conv3d if len(xs) == 5 else F.conv2d
+        ms = median_ms(lambda: conv(x, wt, None, 1, dil, dil), flush, iters=10)
+        flops = 2.0 * x[:, :1].numel() * wt[0].numel() * ws[0]
+        phase(f"classic conv probe: cuDNN bf16 {label} on {list(xs)} ({fmt}): {ms:.3f} ms, "
+              f"{flops / ms / 1e9:.1f} TFLOP/s; {card}")
+        del x, wt
 
 
 def main() -> int:
@@ -1003,6 +1293,11 @@ def main() -> int:
     path_launches[("nv12_ingest", "yuv")] = launches["nv12_ingest"]
     for name in ("correlation", "soft_argmin"):
         path_launches[(name, None)] = launches[name]
+
+    # 11. the CLASSIC StereoNet -------------------------------------------------
+    classic_rows, path_launches[("soft_argmin_cost", None)] = classic_phase(dict(
+        dev=dev, card=card, rng=rng, heldout=heldout, log=log))
+    rows += classic_rows
 
     def row_launches(r):
         return path_launches[(r["name"], r.get("mode") or r.get("scheme"))]

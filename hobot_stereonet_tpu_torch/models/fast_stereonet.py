@@ -1,4 +1,4 @@
-"""FastStereoNet, the flagship network (``upsample_mode="convex"``).
+"""FastStereoNet, the flagship network.
 
 Counterpart of ``hobot_stereonet_tpu/models/fast_stereonet.py``.  The
 public interface keeps the reference's layouts: channel-last inputs
@@ -8,8 +8,9 @@ channel-last views the kernels take cost no copy.
 
 The path: one ``FeatureTower`` call on both eyes (batch 2B), the
 correlation volume (CUDA kernel), ``CorrelationAggregation2D``, the fused
-soft-argmin and confidence (CUDA kernel), the mask head and
-``convex_upsample`` x8.
+soft-argmin and confidence (CUDA kernel), then either the mask head and
+``convex_upsample`` x8 (``upsample_mode="convex"``, the flagship) or the
+CLASSIC StereoNet's hierarchical refinement (``"refine"``).
 """
 
 from __future__ import annotations
@@ -24,17 +25,7 @@ from ..ops.cost_volume import build_correlation_volume
 from ..ops.soft_argmin import soft_argmin_confidence
 from ..ops.upsample import convex_upsample
 from .layers import ConvBlock, ResBlock2D, SameConv2d
-from .stereonet import FeatureTower
-
-
-def _nchw(x: torch.Tensor) -> torch.Tensor:
-    """[B,H,W,C] -> NCHW view with channels-last memory (copies only if needed)."""
-    return x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-
-
-def _nhwc(x: torch.Tensor) -> torch.Tensor:
-    """NCHW -> contiguous [B,H,W,C] (a view for channels-last memory)."""
-    return x.permute(0, 2, 3, 1).contiguous()
+from .stereonet import FeatureTower, _nchw, _nhwc, add_refinement_nets, channels_last, refine
 
 
 class CorrelationAggregation2D(nn.Module):
@@ -67,22 +58,25 @@ class FastStereoNet(nn.Module):
     def __init__(self, cfg: StereoNetConfig = StereoNetConfig(),
                  device: "str | torch.device | None" = None):
         super().__init__()
-        if cfg.upsample_mode != "convex":
-            raise NotImplementedError(
-                f"the port serves upsample_mode='convex' only, got {cfg.upsample_mode!r}")
+        if cfg.upsample_mode not in ("convex", "refine"):
+            raise ValueError(f"unknown upsample_mode {cfg.upsample_mode!r}")
         self.cfg = cfg
         k = cfg.cost_resolution_divisor
         with resolve_device(device, "FastStereoNet"):
             self.FeatureTower_0 = FeatureTower(cfg)
             self.CorrelationAggregation2D_0 = CorrelationAggregation2D(cfg)
-            agg = max(cfg.aggregation_channels, 64)
-            self.upsample_mask_hidden = ConvBlock(agg, 64)
-            self.upsample_mask = SameConv2d(64, 9 * k * k, 3)
-        self.to(memory_format=torch.channels_last)
+            if cfg.upsample_mode == "convex":
+                agg = max(cfg.aggregation_channels, 64)
+                self.upsample_mask_hidden = ConvBlock(agg, 64)
+                self.upsample_mask = SameConv2d(64, 9 * k * k, 3)
+            else:
+                add_refinement_nets(self, cfg)
+        channels_last(self)
 
     def forward(self, left: torch.Tensor, right: torch.Tensor) -> Dict[str, Any]:
         """left, right [B,H,W,3] -> {"disparity" [B,H,W], "confidence"
-        [B,H/k,W/k], "pyramid" [coarse x k, full]}, all float32."""
+        [B,H/k,W/k], "pyramid" [coarse x k, then the full-resolution one or
+        each refinement stage]}, all float32."""
         cfg = self.cfg
         b = left.shape[0]
         k = cfg.cost_resolution_divisor
@@ -97,7 +91,11 @@ class FastStereoNet(nn.Module):
 
         # cost = -logits; disparity scaled to full-res px inside the kernel.
         disp_coarse, conf = soft_argmin_confidence(_nhwc(logits), scale=float(k))
-
-        mask = self.upsample_mask(self.upsample_mask_hidden(agg_feats))
-        disp = convex_upsample(disp_coarse, _nhwc(mask), k)
-        return {"disparity": disp, "pyramid": [disp_coarse, disp], "confidence": conf}
+        pyramid = [disp_coarse]
+        if cfg.upsample_mode == "convex":
+            mask = self.upsample_mask(self.upsample_mask_hidden(agg_feats))
+            disp = convex_upsample(disp_coarse, _nhwc(mask), k)
+            pyramid.append(disp)
+        else:
+            disp = refine(self, cfg, disp_coarse, left, pyramid)
+        return {"disparity": disp, "pyramid": pyramid, "confidence": conf}

@@ -1,4 +1,4 @@
-"""Building blocks of the network: ``ConvBlock`` and ``ResBlock2D``.
+"""Building blocks of the networks: ``ConvBlock``, ``ResBlock2D`` and ``ConvBlock3D``.
 
 Counterparts of ``hobot_stereonet_tpu/models/layers.py``.  Modules run in
 NCHW (PyTorch's layout); submodule names are the flax module names
@@ -8,7 +8,8 @@ path maps onto a ``state_dict`` key one to one (``runtime/weights.py``).
 Where the reference's numerics differ from PyTorch's defaults:
 
   * padding "SAME" is flax's: for a 5x5 stride-2 conv on an even size it
-    pads (1, 2), not (2, 2);
+    pads (1, 2), not (2, 2); a dilated kernel pads as one of extent
+    (k - 1) * d + 1;
   * GroupNorm has eps 1e-6 and computes in float32 with float32 parameters,
     whatever the activation dtype, rounding its output to that dtype once;
   * LeakyReLU has slope 0.2 in the activation's dtype (bf16(0.2) =
@@ -41,19 +42,36 @@ class SameConv2d(nn.Conv2d):
     """``nn.Conv2d`` with flax's "SAME" padding, symmetric or not.  Like
     flax's ``nn.Conv`` it casts its input to its own (the compute) dtype."""
 
-    def __init__(self, in_ch: int, out_ch: int, kernel: int = 3, stride: int = 1):
-        super().__init__(in_ch, out_ch, kernel, stride=stride, padding=0)
+    def __init__(self, in_ch: int, out_ch: int, kernel: int = 3, stride: int = 1,
+                 dilation: int = 1):
+        super().__init__(in_ch, out_ch, kernel, stride=stride, padding=0, dilation=dilation)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.weight.dtype)
         kh, kw = self.kernel_size
-        ph = same_pads(x.shape[2], kh, self.stride[0])
-        pw = same_pads(x.shape[3], kw, self.stride[1])
+        ph = same_pads(x.shape[2], kh, self.stride[0], self.dilation[0])
+        pw = same_pads(x.shape[3], kw, self.stride[1], self.dilation[1])
         if ph[0] == ph[1] and pw[0] == pw[1]:
-            y = F.conv2d(x, self.weight, None, self.stride, (ph[0], pw[0]))
+            y = F.conv2d(x, self.weight, None, self.stride, (ph[0], pw[0]), self.dilation)
         else:
-            y = F.conv2d(F.pad(x, (pw[0], pw[1], ph[0], ph[1])), self.weight, None, self.stride)
+            y = F.conv2d(F.pad(x, (pw[0], pw[1], ph[0], ph[1])), self.weight, None,
+                         self.stride, 0, self.dilation)
         return y + self.bias.to(y.dtype).view(1, -1, 1, 1)
+
+
+class SameConv3d(nn.Conv3d):
+    """``nn.Conv3d`` over (D, H, W) with flax's "SAME" padding at stride 1
+    (odd kernels: symmetric); casts its input to the compute dtype, rounds
+    the sum to it and then adds the bias in it, as :class:`SameConv2d`."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int = 3):
+        if kernel % 2 != 1:
+            raise ValueError(f"SameConv3d takes odd kernels, got {kernel}")
+        super().__init__(in_ch, out_ch, kernel, padding=kernel // 2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.conv3d(x.to(self.weight.dtype), self.weight, None, 1, self.padding)
+        return y + self.bias.to(y.dtype).view(1, -1, 1, 1, 1)
 
 
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
@@ -62,7 +80,8 @@ def leaky_relu(x: torch.Tensor) -> torch.Tensor:
 
 
 class GroupNorm(nn.GroupNorm):
-    """flax ``GroupNorm``: eps 1e-6, float32 statistics and parameters.
+    """flax ``GroupNorm``: eps 1e-6, float32 statistics and parameters,
+    over (C/G, *spatial) of NCHW or NCDHW input.
 
     Its float32 statistics are not the reference's to the last bit, and no
     formulation of them tried reproduces those (``tests/test_torch_reference.py``).
@@ -72,17 +91,19 @@ class GroupNorm(nn.GroupNorm):
         super().__init__(num_groups(channels), channels, eps=GN_EPS)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.group_norm(x.float(), self.num_groups, self.weight.float(),
-                         self.bias.float(), self.eps)
+        dt = torch.promote_types(x.dtype, torch.float32)      # float64 stays float64
+        y = F.group_norm(x.to(dt), self.num_groups, self.weight.to(dt), self.bias.to(dt),
+                         self.eps)
         return y.to(x.dtype)
 
 
 class ConvBlock(nn.Module):
     """Conv2D + GroupNorm + LeakyReLU(0.2)."""
 
-    def __init__(self, in_ch: int, features: int, kernel: int = 3, stride: int = 1):
+    def __init__(self, in_ch: int, features: int, kernel: int = 3, stride: int = 1,
+                 dilation: int = 1):
         super().__init__()
-        self.Conv_0 = SameConv2d(in_ch, features, kernel, stride)
+        self.Conv_0 = SameConv2d(in_ch, features, kernel, stride, dilation)
         self.GroupNorm_0 = GroupNorm(features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -90,12 +111,13 @@ class ConvBlock(nn.Module):
 
 
 class ResBlock2D(nn.Module):
-    """Two 3x3 convs with a skip connection; LeakyReLU after the add."""
+    """Two 3x3 convs (dilated by ``dilation``) with a skip connection;
+    LeakyReLU after the add."""
 
-    def __init__(self, features: int):
+    def __init__(self, features: int, dilation: int = 1):
         super().__init__()
-        self.ConvBlock_0 = ConvBlock(features, features)
-        self.Conv_0 = SameConv2d(features, features, 3)
+        self.ConvBlock_0 = ConvBlock(features, features, dilation=dilation)
+        self.Conv_0 = SameConv2d(features, features, 3, dilation=dilation)
         self.GroupNorm_0 = GroupNorm(features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -103,10 +125,22 @@ class ResBlock2D(nn.Module):
         return leaky_relu(x + h)
 
 
+class ConvBlock3D(nn.Module):
+    """Conv3D (3x3x3 over D, H, W) + GroupNorm + LeakyReLU(0.2), NCDHW."""
+
+    def __init__(self, in_ch: int, features: int, kernel: int = 3):
+        super().__init__()
+        self.Conv_0 = SameConv3d(in_ch, features, kernel)
+        self.GroupNorm_0 = GroupNorm(features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return leaky_relu(self.GroupNorm_0(self.Conv_0(x)))
+
+
 def cast_convs(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     """Put every conv's weights in ``dtype`` (the compute dtype) and leave
     GroupNorm's in float32, as the reference computes them."""
     for m in module.modules():
-        if isinstance(m, nn.Conv2d):
+        if isinstance(m, (nn.Conv2d, nn.Conv3d)):
             m.to(dtype)
     return module

@@ -3,7 +3,10 @@
 Counterparts of ``hobot_stereonet_tpu/ops/pallas/correlation.py``
 (``correlation_volume_pallas`` and ``soft_argmin_pallas``).  The CUDA
 sources are ``csrc/correlation.cu`` and ``csrc/soft_argmin.cu``; the
-``*_plain`` functions are the same functions in plain PyTorch.
+``*_plain`` functions are the same functions in plain PyTorch.  The
+soft-argmin comes in two layouts: channel-last logits [B,H,W,D] (the
+flagship's, :func:`soft_argmin_confidence`) and a D-leading cost
+[B,D,H,W] (the CLASSIC StereoNet's, :func:`soft_argmin_cost`).
 """
 
 from __future__ import annotations
@@ -16,8 +19,10 @@ from . import build
 
 CORRELATION = "correlation"
 SOFT_ARGMIN = "soft_argmin"
+SOFT_ARGMIN_COST = "soft_argmin_cost"
 SOFT_ARGMIN_VECTOR_D = 24     # D of the one-pass kernel (the flagship's coarse D)
 _DTYPES = (torch.float32, torch.bfloat16)
+_PLAIN_DTYPES = _DTYPES + (torch.float64,)    # the plain soft-argmin also takes float64
 
 
 def _check_features(feat_l: torch.Tensor, feat_r: torch.Tensor) -> None:
@@ -139,22 +144,24 @@ def correlation_volume(feat_l: torch.Tensor, feat_r: torch.Tensor,
     return out
 
 
-def _check_logits(logits: torch.Tensor) -> None:
+def _check_logits(logits: torch.Tensor, dtypes=_DTYPES) -> None:
     if logits.dim() != 4:
         raise ValueError(f"{SOFT_ARGMIN}: expected [B,H,W,D] logits, got {tuple(logits.shape)}")
-    if logits.dtype not in _DTYPES:
+    if logits.dtype not in dtypes:
         raise TypeError(f"{SOFT_ARGMIN}: expected float32 or bfloat16, got {logits.dtype}")
 
 
 def soft_argmin_confidence_plain(logits: torch.Tensor, scale: float = 1.0):
-    """[B,H,W,D] logits -> (disp, conf), both [B,H,W] f32.
+    """[B,H,W,D] logits -> (disp, conf), both [B,H,W] f32 (float64 for
+    float64 logits, which only this plain version takes).
 
     With ``p = softmax(logits)`` over D (the softmax of ``cost = -logits``):
     ``disp = scale * sum_d d * p_d`` and ``conf = max_d p_d``.
     """
-    _check_logits(logits)
-    p = torch.softmax(logits.float(), dim=-1)
-    d = torch.arange(logits.shape[-1], dtype=torch.float32, device=logits.device)
+    _check_logits(logits, _PLAIN_DTYPES)
+    dt = torch.promote_types(logits.dtype, torch.float32)
+    p = torch.softmax(logits.to(dt), dim=-1)
+    d = torch.arange(logits.shape[-1], dtype=dt, device=logits.device)
     return (p * d).sum(-1) * scale, p.amax(-1)
 
 
@@ -189,4 +196,45 @@ def soft_argmin_confidence(logits: torch.Tensor, scale: float = 1.0):
         int(uses_vector_kernel(logits)), build.stream_handle(logits))
     build.check(SOFT_ARGMIN, err)
     build.launch_counts[SOFT_ARGMIN] += 1
+    return disp, conf
+
+
+def _check_cost(cost: torch.Tensor, dtypes=_DTYPES) -> None:
+    if cost.dim() != 4:
+        raise ValueError(f"{SOFT_ARGMIN_COST}: expected a [B,D,H,W] cost, got {tuple(cost.shape)}")
+    if cost.dtype not in dtypes:
+        raise TypeError(f"{SOFT_ARGMIN_COST}: expected float32 or bfloat16, got {cost.dtype}")
+
+
+def soft_argmin_cost_plain(cost: torch.Tensor, scale: float = 1.0):
+    """[B,D,H,W] cost -> (disp, conf), both [B,H,W] f32 (float64 for a
+    float64 cost): the softmax of ``-cost`` over D,
+    ``disp = scale * sum_d d * p_d``, ``conf = max_d p_d``."""
+    _check_cost(cost, _PLAIN_DTYPES)
+    return soft_argmin_confidence_plain(-cost.movedim(1, -1), scale)
+
+
+def soft_argmin_cost(cost: torch.Tensor, scale: float = 1.0):
+    """Fused soft-argmin disparity x ``scale`` and peak-probability
+    confidence of a D-leading cost [B,D,H,W] (lower is better).
+
+    CUDA tensors go through ``csrc/soft_argmin.cu``'s D-leading kernel,
+    which reads the cost where it lies (it must be contiguous); CPU
+    tensors through :func:`soft_argmin_cost_plain`.
+    """
+    if cost.device.type == "cpu":
+        return soft_argmin_cost_plain(cost, scale)
+    _check_cost(cost)
+    if cost.device.type != "cuda":
+        raise ValueError(f"{SOFT_ARGMIN_COST}: unsupported device {cost.device}")
+    if not cost.is_contiguous():
+        raise ValueError(f"{SOFT_ARGMIN_COST}: the cost must be contiguous [B,D,H,W]")
+    b, d, h, w = cost.shape
+    disp = torch.empty((b, h, w), dtype=torch.float32, device=cost.device)
+    conf = torch.empty_like(disp)
+    err = build.library().hst_soft_argmin_dlead(
+        cost.data_ptr(), disp.data_ptr(), conf.data_ptr(), b, d, h * w, float(scale),
+        int(cost.dtype == torch.bfloat16), build.stream_handle(cost))
+    build.check(SOFT_ARGMIN_COST, err)
+    build.launch_counts[SOFT_ARGMIN_COST] += 1
     return disp, conf

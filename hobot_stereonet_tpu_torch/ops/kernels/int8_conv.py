@@ -61,10 +61,11 @@ EPI_CHANNELS = 64             # channels of one epilogue pass through shared mem
 PLAN_VERSION = 2              # struct PlanArgs of csrc/int8_conv.cu checks it
 
 
-def same_pads(size: int, kernel: int, stride: int):
-    """flax/XLA "SAME" padding (low, high) along one axis."""
+def same_pads(size: int, kernel: int, stride: int, dilation: int = 1):
+    """flax/XLA "SAME" padding (low, high) along one axis, for ``kernel``
+    taps ``dilation`` apart (an extent of ``(kernel - 1) * dilation + 1``)."""
     out = -(-size // stride)
-    total = max((out - 1) * stride + kernel - size, 0)
+    total = max((out - 1) * stride + (kernel - 1) * dilation + 1 - size, 0)
     return total // 2, total - total // 2
 
 

@@ -135,6 +135,20 @@ class Int8Conv2d(nn.Module):
                             out_dtype=self.out_dtype)
 
 
+def unsupported_convs(model: nn.Module) -> list:
+    """The convs of ``model`` that :class:`Int8Conv2d` does not run, as
+    ``"path: what"`` strings: 3-D convs and dilated convs.  (On the card
+    the kernel also needs Cin = 3 or a multiple of 8 and Cout a multiple
+    of 8; ``int8_conv`` raises at the call.)"""
+    out = []
+    for name, m in model.named_modules():
+        if isinstance(m, nn.Conv3d):
+            out.append(f"{name}: 3-D {'x'.join(map(str, m.kernel_size))}")
+        elif isinstance(m, nn.Conv2d) and m.dilation != (1, 1):
+            out.append(f"{name}: dilation {m.dilation[0]}")
+    return out
+
+
 def quantize_model(model: nn.Module, calib: "Mapping[str, float] | str | None" = None
                    ) -> nn.Module:
     """Swap every ``SameConv2d`` of ``model`` for an :class:`Int8Conv2d`, in place.
@@ -143,8 +157,14 @@ def quantize_model(model: nn.Module, calib: "Mapping[str, float] | str | None" =
     ``cast_convs``).  ``calib`` (a dict or a ``calib.json`` path) selects
     the static scheme for the convs it names; the rest run the dynamic
     scheme.  The output dtype is ``model.cfg.compute_dtype``.  Returns the
-    model.
+    model.  Raises ``NotImplementedError`` if the model has a conv that
+    the int8 kernel does not take (:func:`unsupported_convs`).
     """
+    missing = unsupported_convs(model)
+    if missing:
+        raise NotImplementedError(
+            "not served in int8 by the port yet: the int8 conv kernel takes 2-D undilated "
+            f"convs, and this model also has {missing}")
     if isinstance(calib, str):
         calib = load_calibration(calib)
     calib = calib or {}

@@ -2,19 +2,22 @@
 
 Counterpart of ``hobot_stereonet_tpu/ops/soft_argmin.py``.
 :func:`soft_argmin` and :func:`disparity_confidence` take the cost and call
-the plain version of the fused function; the network calls the fused
-kernel, :func:`soft_argmin_confidence` (``ops/kernels/correlation.py``),
-which takes the logits (``cost = -logits``) and applies the disparity scale.
+the plain version of the fused function.  The networks call the fused
+kernels (``ops/kernels/correlation.py``), which apply the disparity scale:
+``FastStereoNet`` :func:`soft_argmin_confidence` on channel-last logits
+(``cost = -logits``), ``StereoNet`` :func:`soft_argmin_cost` on its
+D-leading cost.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .kernels.correlation import soft_argmin_confidence, soft_argmin_confidence_plain
+from .kernels.correlation import (soft_argmin_confidence, soft_argmin_confidence_plain,
+                                  soft_argmin_cost, soft_argmin_cost_plain)
 
 __all__ = ["soft_argmin", "disparity_confidence", "soft_argmin_confidence",
-           "soft_argmin_confidence_plain"]
+           "soft_argmin_confidence_plain", "soft_argmin_cost", "soft_argmin_cost_plain"]
 
 
 def soft_argmin(cost: torch.Tensor, dim: int = 1) -> torch.Tensor:

@@ -1,6 +1,7 @@
-"""Reference data the port carries: the flagship's trained weights and the
-JAX package's outputs on fixed inputs, written with numpy so that a machine
-without JAX, flax or orbax can load them.
+"""Reference data the port carries: the trained weights of the flagship and
+of the CLASSIC StereoNet and the JAX package's outputs on fixed inputs,
+written with numpy so that a machine without JAX, flax or orbax can load
+them.
 
   * ``flagship_params.npz``: ``checkpoints/flagship/params`` as a flax tree
     (``runtime.weights.load_flax_npz``), 106 arrays, 887 032 parameters;
@@ -26,9 +27,18 @@ without JAX, flax or orbax can load them.
         ``<scheme>_heldout_d1``: the JAX ``evaluate_dataset`` over the
         held-out set.
 
-The files are written by ``python tests/test_torch_reference.py --write``,
-and ``tests/test_torch_reference.py`` checks on every run that they are
-still what the checkpoint and the JAX package give.
+  * ``classic_params.npz``: ``checkpoints/frontier_CLASSIC`` (the CLASSIC
+    StereoNet, ``StereoNetConfig()`` read by ``StereoNet``), 202 arrays,
+    428 156 parameters;
+  * ``classic_outputs.npz``: the JAX package's ``StereoNet`` with those
+    weights, under the same ``XLA_FLAGS``, with the default RGB
+    preprocessing (as ``scripts/accuracy_stats.py`` evaluates CLASSIC):
+    the same keys as ``flagship_outputs.npz``.
+
+The flagship's files are written by ``python tests/test_torch_reference.py
+--write``, CLASSIC's by ``python tests/test_torch_classic_reference.py
+--write``; the same files' tests check on every run that they are still
+what the checkpoints and the JAX package give.
 """
 
 from __future__ import annotations
@@ -41,6 +51,8 @@ REF_DIR = Path(__file__).resolve().parent
 PARAMS_NPZ = REF_DIR / "flagship_params.npz"
 OUTPUTS_NPZ = REF_DIR / "flagship_outputs.npz"
 INT8_OUTPUTS_NPZ = REF_DIR / "flagship_int8_outputs.npz"
+CLASSIC_PARAMS_NPZ = REF_DIR / "classic_params.npz"
+CLASSIC_OUTPUTS_NPZ = REF_DIR / "classic_outputs.npz"
 # The flagship's calibrated activation scales, one per conv, keyed by flax path.
 CALIB_JSON = REF_DIR.parents[1] / "checkpoints" / "flagship" / "calib.json"
 INT8_SCHEMES = ("dynamic", "static")
@@ -56,6 +68,10 @@ FRAME_SEED = 720
 # YUV_ft.heldout).
 HELDOUT_EPE_PX = 0.8689
 HELDOUT_EPE_CI95_PX = 0.0754
+# CLASSIC's held-out EPE, mean and 95 % interval (accuracy_stats.json,
+# CLASSIC.heldout).
+CLASSIC_HELDOUT_EPE_PX = 0.9374
+CLASSIC_HELDOUT_EPE_CI95_PX = 0.0775
 
 
 def heldout_dataset():
@@ -76,15 +92,16 @@ def frame_720p() -> np.ndarray:
     return rgb_pair_to_sbs_nv12(l, r)
 
 
-def load_params() -> dict:
-    """The flagship's weights as a flax variables dict."""
+def load_params(path: Path = PARAMS_NPZ) -> dict:
+    """The flagship's weights (``path``: :data:`CLASSIC_PARAMS_NPZ` for
+    CLASSIC's) as a flax variables dict."""
     from ..runtime.weights import load_flax_npz
 
-    return load_flax_npz(str(PARAMS_NPZ))
+    return load_flax_npz(str(path))
 
 
 def load_outputs(path: Path = OUTPUTS_NPZ) -> dict:
     """The JAX outputs, ``{name: array}`` (``path``: :data:`INT8_OUTPUTS_NPZ`
-    for the int8 ones)."""
+    for the int8 ones, :data:`CLASSIC_OUTPUTS_NPZ` for CLASSIC's)."""
     with np.load(path) as data:
         return {k: data[k] for k in data.files}

@@ -43,9 +43,9 @@ def measure_engine_fps(
     dispatch batch, as a plain dict.
 
     ``params`` is a flax parameter tree (``None``: seeded random weights;
-    throughput does not depend on them).  ``model`` is accepted for the
-    reference's signature and must be ``None``: the engine builds the
-    port's ``FastStereoNet`` from ``model_cfg``.  ``preprocess_cfg``
+    throughput does not depend on them).  ``model`` is the engine's
+    (``"fast"``, the default, ``"classic"``, or a built port network),
+    built from ``model_cfg``.  ``preprocess_cfg``
     defaults to the YUV input, the flagship's (the reference defaults to
     RGB).  ``int8=True`` serves w8a8 with dynamic scales, ``static_quant``
     (a calibration dict or ``calib.json`` path) with calibrated ones.  The
@@ -55,8 +55,6 @@ def measure_engine_fps(
     from ..data.stream import DeviceFrameRing
     from .engine import StereoEngine
 
-    if model is not None:
-        raise ValueError("the port's engine builds its own model; pass model_cfg and params")
     n_frames = batch * n_batches
     cfg = Config(
         camera=CameraConfig(height=height, width=width),
@@ -75,7 +73,7 @@ def measure_engine_fps(
         ),
     )
     eng = StereoEngine(cfg, params=params, compute_depth=False, int8=int8,
-                       static_quant=static_quant, device=device)
+                       static_quant=static_quant, device=device, model=model or "fast")
     ring = DeviceFrameRing(height=height, width=width, ring_size=ring_size, device=eng.device)
 
     t_w = time.perf_counter()

@@ -11,8 +11,9 @@ adaptive micro-batching into padded batch buckets, the same results.
               -> fetch: wait for the event (with a deadline), split the
                  batch into results -> [result queue]
 
-The pipeline per batch is the NV12 ingest kernel, ``FastStereoNet``, depth
-and the per-frame non-finite flags.  In place of the reference's jit
+The pipeline per batch is the NV12 ingest kernel, the network
+(``FastStereoNet``, or the CLASSIC ``StereoNet`` with ``model="classic"``),
+depth and the per-frame non-finite flags.  In place of the reference's jit
 dispatch, the dispatch thread enqueues the work on a CUDA stream of its own
 and records an event; the fetch thread polls the event.  On the CPU
 (``device="cpu"``) the same pipeline runs synchronously in the dispatch
@@ -57,7 +58,7 @@ import torch
 
 from ..config import Config, resolve_device
 from ..data.stream import Frame, RingSlot, sbs_nv12_to_left_rgb
-from ..models import FastStereoNet
+from ..models import build_model, model_name
 from ..ops import preprocess as pp
 from ..ops.disparity import disparity_to_depth_m
 from ..ops.quant import load_calibration, serving_model
@@ -142,11 +143,16 @@ class StereoEngine(ServingLoop):
         for res in eng.results(): ...
         eng.stop()
 
+    ``model`` is ``"fast"`` (``FastStereoNet``, the flagship), ``"classic"``
+    (the CLASSIC ``StereoNet``) or a port network built on ``device``, as
+    the JAX engine's ``model=`` and its CLI's ``--model`` choose.
     ``params`` is a flax parameter tree of the JAX package (nested numpy
     arrays, as orbax or :func:`~.weights.load_flax_npz` loads it); ``None``
-    means random weights from seed 0 (:func:`~.weights.random_flax_params`).
-    ``int8=True`` serves w8a8 with dynamic scales, ``static_quant`` (a
-    calibration dict or a ``calib.json`` path) with calibrated ones.
+    means random weights from seed 0 (:func:`~.weights.random_flax_params`),
+    or a built network's own weights.  ``int8=True`` serves w8a8 with
+    dynamic scales, ``static_quant`` (a calibration dict or a ``calib.json``
+    path) with calibrated ones; a network with convs the int8 kernel does
+    not take (CLASSIC's 3-D and dilated convs) raises ``NotImplementedError``.
     """
 
     _thread_prefix = "engine"
@@ -154,7 +160,7 @@ class StereoEngine(ServingLoop):
     def __init__(self, cfg: Config = Config(), params: Optional[Mapping] = None,
                  compute_depth: bool = True, emit_confidence: bool = False,
                  keep_left: bool = False, int8: bool = False, static_quant=None,
-                 device: "str | torch.device | None" = None):
+                 device: "str | torch.device | None" = None, model="fast"):
         _check_supported(cfg)
         self.device = resolve_device(device, "StereoEngine")
         self.cfg = cfg
@@ -167,10 +173,13 @@ class StereoEngine(ServingLoop):
             inflight=cfg.engine.inflight,
             drop_on_full=cfg.engine.drop_on_full,
         )
-        if params is None:
-            params = random_flax_params(cfg.model, seed=0)
-        model = FastStereoNet(cfg.model, device=self.device)
-        model.load_state_dict(from_flax_params(params, cfg.model))
+        built = not isinstance(model, str)
+        model = build_model(model, cfg.model, self.device)
+        name = model_name(model)
+        if params is None and not built:
+            params = random_flax_params(cfg.model, seed=0, model=name)
+        if params is not None:
+            model.load_state_dict(from_flax_params(params, model.cfg, name))
         if isinstance(static_quant, str):
             static_quant = load_calibration(static_quant)
         self.int8 = int8

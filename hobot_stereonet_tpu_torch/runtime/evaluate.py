@@ -2,8 +2,9 @@
 
 Counterpart of ``hobot_stereonet_tpu/runtime/evaluate.py``.  Each pair goes
 through :func:`~..ops.preprocess.rgb_pair_to_model_input` and the port's
-``FastStereoNet`` on the model's device, so on the card it runs the
-correlation and soft-argmin kernels.
+network on the model's device, so on the card it runs the network's
+kernels (correlation and soft-argmin for ``FastStereoNet``, the D-leading
+soft-argmin for the CLASSIC ``StereoNet``).
 """
 
 from __future__ import annotations
@@ -52,23 +53,23 @@ def evaluate_dataset(
     EPE and D1-all over its valid pixels (0 < GT < max disparity), each
     frame weighted by its count of valid pixels.
 
-    ``model`` is a port ``FastStereoNet`` or ``None`` (one is built from
-    ``cfg.model`` on ``device``, default ``cuda:0``); ``params``, a flax
-    parameter tree, is loaded into it unless ``None``.  Each frame is padded
+    ``model`` is a port network, or ``"fast"``, ``"classic"`` or ``None``
+    (``"fast"``) for one built from ``cfg.model`` on ``device`` (default
+    ``cuda:0``); ``params``, a flax parameter tree, is loaded into it
+    unless ``None``.  Each frame is padded
     at the bottom and right to the stride multiple (twice the cost-volume
     divisor), or to ``batch_compile_hw`` if larger, and the prediction is
     cropped back.  ``int8=True`` evaluates w8a8 with dynamic scales,
     ``static_quant`` (a calibration dict or ``calib.json`` path) with
     calibrated ones; ``model`` must then still hold float32 weights.
     """
-    from ..models import FastStereoNet
+    from ..models import build_model, model_name
     from ..ops.quant import serving_model
     from .weights import from_flax_params
 
-    if model is None:
-        model = FastStereoNet(cfg.model, device=device)
+    model = build_model(model or "fast", cfg.model, device)
     if params is not None:
-        model.load_state_dict(from_flax_params(params, model.cfg))
+        model.load_state_dict(from_flax_params(params, model.cfg, model_name(model)))
     model = serving_model(model, int8, static_quant)
     dev = next(model.parameters()).device
 

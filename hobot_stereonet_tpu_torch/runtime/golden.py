@@ -34,21 +34,23 @@ def dump_pipeline(
     cfg=None,
     path: Optional[str] = None,
 ) -> Dict[str, np.ndarray]:
-    """Run one stereo pair through the port's ``FastStereoNet`` and capture
-    every module's output.
+    """Run one stereo pair through a port network and capture every
+    module's output.
 
-    ``model`` is a ``FastStereoNet`` (its device and dtypes are used as
-    they are); ``params``, a flax tree, is loaded into it unless ``None``.
+    ``model`` is a ``FastStereoNet`` or ``StereoNet`` (its device and dtypes
+    are used as they are); ``params``, a flax tree, is loaded into it unless
+    ``None``.
     Returns ``{name: float32 array}``; writes a compressed ``.npz`` when
     ``path`` is given.
     """
     from ..config import Config
+    from ..models import model_name
     from ..ops import preprocess as pp
     from .weights import from_flax_params
 
     cfg = cfg or Config()
     if params is not None:
-        model.load_state_dict(from_flax_params(params, model.cfg))
+        model.load_state_dict(from_flax_params(params, model.cfg, model_name(model)))
     dev = next(model.parameters()).device
     x = pp.rgb_pair_to_model_input(left_rgb, right_rgb, cfg.preprocess, dev)
 

@@ -5,7 +5,7 @@ the port's submodules carry the flax module names
 (``FeatureTower_0/ConvBlock_0/Conv_0/kernel`` ->
 ``FeatureTower_0.ConvBlock_0.Conv_0.weight``):
 
-  * conv ``kernel`` HWIO -> ``weight`` OIHW;
+  * conv ``kernel`` HWIO -> ``weight`` OIHW, DHWIO -> OIDHW (3-D);
   * GroupNorm ``scale`` -> ``weight``; ``bias`` stays ``bias``.
 
 The trees come as nested mappings of numpy arrays.  ``from_flax_params``
@@ -30,11 +30,11 @@ import torch
 from ..config import StereoNetConfig
 
 
-def _expected_state(cfg: StereoNetConfig) -> Dict[str, Tuple[int, ...]]:
-    from ..models import FastStereoNet
+def _expected_state(cfg: StereoNetConfig, model: str) -> Dict[str, Tuple[int, ...]]:
+    from ..models import build_model
 
-    model = FastStereoNet(cfg, device="meta")
-    return {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    net = build_model(model, cfg, device="meta")
+    return {k: tuple(v.shape) for k, v in net.state_dict().items()}
 
 
 def _unwrap(tree: Mapping) -> Mapping:
@@ -62,9 +62,10 @@ def flax_to_state_dict(tree: Mapping) -> Dict[str, torch.Tensor]:
         arr = np.array(value, dtype=np.float32)             # a writable copy
         leaf = path[-1]
         if leaf == "kernel":
-            if arr.ndim != 4:
-                raise ValueError(f"{'/'.join(path)}: expected a 2D conv kernel, got {arr.shape}")
-            arr = arr.transpose(3, 2, 0, 1)
+            if arr.ndim not in (4, 5):
+                raise ValueError(f"{'/'.join(path)}: expected a 2D or 3D conv kernel, "
+                                 f"got {arr.shape}")
+            arr = arr.transpose(arr.ndim - 1, arr.ndim - 2, *range(arr.ndim - 2))
             leaf = "weight"
         elif leaf == "scale":
             leaf = "weight"
@@ -74,19 +75,21 @@ def flax_to_state_dict(tree: Mapping) -> Dict[str, torch.Tensor]:
     return state
 
 
-def from_flax_params(tree: Mapping, cfg: StereoNetConfig = StereoNetConfig()
-                     ) -> Dict[str, torch.Tensor]:
-    """Flax parameter tree of ``FastStereoNet(cfg)`` -> the port's ``state_dict``.
+def from_flax_params(tree: Mapping, cfg: StereoNetConfig = StereoNetConfig(),
+                     model: str = "fast") -> Dict[str, torch.Tensor]:
+    """Flax parameter tree of the network ``model`` (``"fast"``:
+    ``FastStereoNet(cfg)``, ``"classic"``: ``StereoNet(cfg)``) -> the
+    port's ``state_dict``.
 
     Raises ``KeyError`` on a missing or an extra parameter and
     ``ValueError`` on a shape that does not match ``cfg``.
     """
-    expected = _expected_state(cfg)
+    expected = _expected_state(cfg, model)
     state = flax_to_state_dict(tree)
     missing = sorted(set(expected) - set(state))
     extra = sorted(set(state) - set(expected))
     if missing or extra:
-        raise KeyError(f"flax parameters do not match FastStereoNet: "
+        raise KeyError(f"flax parameters do not match the {model} network: "
                        f"missing {missing}, extra {extra}")
     for key, shape in expected.items():
         if tuple(state[key].shape) != shape:
@@ -94,8 +97,10 @@ def from_flax_params(tree: Mapping, cfg: StereoNetConfig = StereoNetConfig()
     return state
 
 
-def random_flax_params(cfg: StereoNetConfig = StereoNetConfig(), seed: int = 0) -> dict:
-    """Seeded random parameters in the flax tree's layout and shapes.
+def random_flax_params(cfg: StereoNetConfig = StereoNetConfig(), seed: int = 0,
+                       model: str = "fast") -> dict:
+    """Seeded random parameters of the network ``model`` (as
+    :func:`from_flax_params` names it) in the flax tree's layout and shapes.
 
     Conv kernels follow flax's default ``lecun_normal`` (normal with std
     ``1/sqrt(fan_in)``, clipped at two std), biases are zero, GroupNorm
@@ -103,17 +108,17 @@ def random_flax_params(cfg: StereoNetConfig = StereoNetConfig(), seed: int = 0) 
     """
     rng = np.random.default_rng(seed)
     tree: dict = {}
-    for key, shape in _expected_state(cfg).items():
+    for key, shape in _expected_state(cfg, model).items():
         *mods, leaf = key.split(".")
         node = tree
         for m in mods:
             node = node.setdefault(m, {})
         if leaf == "bias":
             node["bias"] = np.zeros(shape, np.float32)
-        elif len(shape) == 4:                           # conv OIHW -> HWIO
-            o, i, kh, kw = shape
-            std = 1.0 / np.sqrt(i * kh * kw)
-            w = np.clip(rng.standard_normal((kh, kw, i, o)), -2.0, 2.0) * std
+        elif len(shape) in (4, 5):                      # conv OI(D)HW -> (D)HWIO
+            o, i, *taps = shape
+            std = 1.0 / np.sqrt(i * np.prod(taps))
+            w = np.clip(rng.standard_normal((*taps, i, o)), -2.0, 2.0) * std
             node["kernel"] = w.astype(np.float32)
         else:                                           # GroupNorm scale
             node["scale"] = np.ones(shape, np.float32)

@@ -17,7 +17,10 @@ version round at the same points but sum the f32 Gram value in other
 orders (the tensor cores in theirs), so a Gram value can land one step
 away, which the division by bf16(sqrt C) and the second rounding carry
 to up to two steps of the output; a sum near zero can differ in its
-rounding far beyond its own size.  Soft-argmin at f32 rounding (rtol 1e-5).
+rounding far beyond its own size.  Soft-argmin, channel-last or over a
+D-leading cost, at f32 rounding (rtol 1e-5).  The CLASSIC StereoNet in
+float32 on the card against the CPU: disparity 1e-3 px, confidence 1e-4
+(the flagship's card-against-CPU bounds in chip_smoke.py; TF32 off).
 """
 
 import numpy as np
@@ -31,6 +34,8 @@ from hobot_stereonet_tpu_torch.ops.kernels.correlation import (
     correlation_volume_plain,
     soft_argmin_confidence,
     soft_argmin_confidence_plain,
+    soft_argmin_cost,
+    soft_argmin_cost_plain,
     uses_vector_kernel,
 )
 from hobot_stereonet_tpu_torch.ops.kernels.int8_conv import (
@@ -140,6 +145,65 @@ def test_soft_argmin_kernel_on_rows_not_16_byte_aligned(device):
     want_d, want_c = soft_argmin_confidence_plain(logits, scale=8.0)
     torch.testing.assert_close(disp, want_d, rtol=1e-5, atol=1e-4)
     torch.testing.assert_close(conf, want_c, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("b,d,h,w,dtype", [
+    (2, 24, 3, 5, torch.bfloat16),
+    (2, 24, 3, 5, torch.float32),
+    (8, 24, 90, 160, torch.bfloat16),          # the CLASSIC path at B = 8
+    (32, 24, 90, 160, torch.bfloat16),
+    (3, 7, 9, 13, torch.bfloat16),             # another D: two passes
+    (3, 40, 9, 13, torch.float32),
+])
+def test_soft_argmin_cost_kernel(device, b, d, h, w, dtype):
+    rng = np.random.default_rng(4)
+    cost = torch.from_numpy(
+        (3.0 * rng.standard_normal((b, d, h, w))).astype(np.float32)).to(dtype).to(device)
+    n0 = build.launch_counts["soft_argmin_cost"]
+    disp, conf = soft_argmin_cost(cost, scale=8.0)
+    torch.cuda.synchronize()
+    assert build.launch_counts["soft_argmin_cost"] == n0 + 1
+    want_d, want_c = soft_argmin_cost_plain(cost, scale=8.0)
+    torch.testing.assert_close(disp, want_d, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(conf, want_c, rtol=1e-5, atol=1e-6)
+
+
+def test_soft_argmin_cost_kernel_refuses_a_strided_cost(device):
+    cost = torch.zeros((2, 24, 9, 13), dtype=torch.bfloat16, device=device)
+    with pytest.raises(ValueError, match="contiguous"):
+        soft_argmin_cost(cost.transpose(2, 3), scale=8.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        soft_argmin_cost(cost[:, ::2], scale=8.0)
+
+
+def test_classic_stereonet_f32_on_the_card_equals_the_cpu(device):
+    from hobot_stereonet_tpu_torch.config import StereoNetConfig
+    from hobot_stereonet_tpu_torch.models import StereoNet
+    from hobot_stereonet_tpu_torch.runtime.weights import from_flax_params, random_flax_params
+
+    cfg = StereoNetConfig(compute_dtype=torch.float32)
+    params = random_flax_params(cfg, seed=0, model="classic")
+    rng = np.random.default_rng(5)
+    left = torch.from_numpy(rng.uniform(-1, 1, (2, 64, 128, 3)).astype(np.float32))
+    right = torch.roll(left, -3, dims=2)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        outs = []
+        for dev in (device, torch.device("cpu")):
+            net = StereoNet(cfg, device=dev)
+            net.load_state_dict(from_flax_params(params, cfg, "classic"))
+            n0 = build.launch_counts["soft_argmin_cost"]
+            with torch.inference_mode():
+                o = net.eval()(left.to(dev), right.to(dev))
+            assert build.launch_counts["soft_argmin_cost"] == n0 + (dev.type == "cuda")
+            outs.append((o["disparity"].cpu(), o["confidence"].cpu()))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    (gd, gc), (cd, cc) = outs
+    assert torch.isfinite(gd).all()
+    torch.testing.assert_close(gd, cd, rtol=0, atol=1e-3)
+    torch.testing.assert_close(gc, cc, rtol=0, atol=1e-4)
 
 
 def _small_engine(device, **engine):

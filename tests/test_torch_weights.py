@@ -10,13 +10,12 @@ import torch
 
 from hobot_stereonet_tpu.runtime.checkpoint import load_params
 from hobot_stereonet_tpu_torch.config import Config, StereoNetConfig
-from hobot_stereonet_tpu_torch.models import FastStereoNet
+from hobot_stereonet_tpu_torch.models import FastStereoNet, StereoNet
 from hobot_stereonet_tpu_torch.runtime.weights import from_flax_params, random_flax_params
 
 torch.set_num_threads(1)
 
-# Architectures of the fast-model checkpoints (scripts/frontier.py); the
-# two *_CLASSIC checkpoints hold the CLASSIC StereoNet, not served yet.
+# Architectures of the fast-model checkpoints (scripts/frontier.py).
 FAST = {
     "fast_synth_v1": {},
     "flagship": {},
@@ -29,6 +28,8 @@ FAST = {
     "matrix_A_base_layered": {},
     "yuv_ft": {},
 }
+# The CLASSIC StereoNet's checkpoints (scripts/frontier.py, "CLASSIC").
+CLASSIC = ("frontier_CLASSIC", "matrix_CLASSIC_layered")
 
 
 def _load(name):
@@ -39,9 +40,7 @@ def _load(name):
 
 
 def test_every_fast_checkpoint_is_listed():
-    dirs = {d for d in os.listdir("checkpoints") if not d.endswith("_CLASSIC")
-            and not d.endswith("_CLASSIC_layered")}
-    assert dirs == set(FAST)
+    assert set(os.listdir("checkpoints")) == set(FAST) | set(CLASSIC)
 
 
 @pytest.mark.parametrize("name", sorted(FAST))
@@ -60,6 +59,39 @@ def test_checkpoint_carries_across(name):
     gn = tree["params"]["FeatureTower_0"]["ConvBlock_0"]["GroupNorm_0"]["scale"]
     np.testing.assert_array_equal(
         model.FeatureTower_0.ConvBlock_0.GroupNorm_0.weight.detach().numpy(), gn)
+
+
+@pytest.mark.parametrize("name", CLASSIC)
+def test_classic_checkpoint_carries_across(name):
+    """Both CLASSIC checkpoints convert with exact shapes into the port's
+    StereoNet; a 3-D kernel DHWIO -> OIDHW, a dilated one HWIO -> OIHW."""
+    tree = _load(name)
+    state = from_flax_params(tree, StereoNetConfig(), model="classic")
+    assert len(state) == len(jax.tree_util.tree_leaves(tree)) == 202
+    model = StereoNet(device="cpu")
+    model.load_state_dict(state, strict=True)
+    p = tree["params"]
+    conv3d = p["CostAggregation_0"]["ConvBlock3D_0"]["Conv_0"]["kernel"]
+    assert conv3d.shape == (3, 3, 3, 32, 32)
+    np.testing.assert_array_equal(
+        model.CostAggregation_0.ConvBlock3D_0.Conv_0.weight.detach().numpy(),
+        np.transpose(conv3d, (4, 3, 0, 1, 2)))
+    dilated = model.RefinementNet_2.ResBlock2D_1.Conv_0
+    assert dilated.dilation == (2, 2) and dilated.weight.shape == (12, 12, 3, 3)
+    np.testing.assert_array_equal(
+        dilated.weight.detach().numpy(),
+        np.transpose(p["RefinementNet_2"]["ResBlock2D_1"]["Conv_0"]["kernel"], (3, 2, 0, 1)))
+    with pytest.raises(KeyError, match="the fast network"):
+        from_flax_params(tree)
+
+
+def test_random_classic_weights_match_the_jax_init_tree():
+    from hobot_stereonet_tpu.models.stereonet import init_params
+
+    want = jax.tree_util.tree_map(np.shape, init_params(jax.random.PRNGKey(0)))
+    got = random_flax_params(seed=3, model="classic")
+    assert jax.tree_util.tree_map(np.shape, got) == want
+    StereoNet(device="cpu").load_state_dict(from_flax_params(got, model="classic"))
 
 
 def test_train_state_and_bare_trees():
