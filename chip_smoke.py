@@ -81,7 +81,24 @@ Phases, each printed with its elapsed seconds:
      ``channels_last_3d``, and a 12-channel conv against the same padded to
      16 channels.
 
-Phases 7, 8, 10 and 11 reset the kernels' launch counts just before they drive
+ 12. training (``runtime/training.py``, ``train_loop.py``): the three backward
+     kernels (``hst_correlation_backward``, ``hst_soft_argmin_backward``,
+     ``hst_soft_argmin_dlead_backward``) against their plain versions in
+     float32 (1e-5 of the largest magnitude) and bf16 (>= 99.9 % within one
+     bf16 step, all within two), at the serving shapes (B = 8 and 32 at
+     90x160) and the training one (B = 8 at 16x32), timed beside their
+     bounds; one ``make_train_step`` of each network from its committed
+     weights on the stored batch (``reference/*_train_step.npz``) against
+     JAX's loss, gradient norm and gradients, in float32 and bf16
+     (``reference.TRAIN_F32_*``, ``reference.bf16_grad_check``);
+     ``train_synthetic`` of the flagship from ``init_params``: 30 steps,
+     batch 8, crops of 128x256, bf16, YUV (the mean loss of the last 5 steps
+     below the first 5's), with the forward and backward kernels launched,
+     its steps/s, the device step's own steps/s and one profiled step; the
+     saved checkpoint served by ``StereoEngine`` on 8 frames at 720p; 10
+     steps of CLASSIC (RGB), which launch the D-leading backward.
+
+Phases 7, 8, 10, 11 and 12 reset the kernels' launch counts just before they drive
 their path and fail if a kernel of it was not launched.  The held-out
 scenes are rendered on a host thread from the start, beside phases 2-6.
 
@@ -133,6 +150,12 @@ INGEST_MODES = (("yuv", False, False), ("rgb", True, False), ("rgb+quantize", Tr
 # the paired mean difference, in px.
 INT8_PAIRED_MEAN_PX = 0.01
 BF16_PATH = ("nv12_ingest", "correlation", "soft_argmin")   # the kernels of the bf16 path
+TRAIN_PATH = ("correlation", "correlation_bwd", "soft_argmin", "soft_argmin_bwd")
+CLASSIC_TRAIN_PATH = ("soft_argmin_cost", "soft_argmin_cost_bwd")
+# Backward kernels: (B, h, w) at the serving shapes and the training one
+# (crops of 128x256 at 1/8).
+BWD_SHAPES = ((8, H // 8, W // 8), (32, H // 8, W // 8), (8, 16, 32))
+TRAIN_STEPS, CLASSIC_TRAIN_STEPS, TRAIN_BATCH, TRAIN_CROP = 30, 10, 8, (128, 256)
 INT8_PATH = BF16_PATH + ("int8_conv",)
 
 
@@ -915,6 +938,266 @@ def classic_phase(ctx: dict) -> tuple:
     return rows, launches["soft_argmin_cost"]
 
 
+def check_backward(name: str, got, want) -> str:
+    """float32: within 1e-5 of the largest magnitude; bf16: >= 99.9 % of the
+    values within one bf16 step of the plain version's, all within two."""
+    import torch
+
+    from hobot_stereonet_tpu_torch.ops.kernels import correlation as kc
+
+    if got.dtype == torch.float32:
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        detail = f"max |err| {err:.3g} ({err / scale:.3g} of the largest)"
+        ok = err <= 1e-5 * scale
+    else:
+        ulps = kc.bf16_ulp_distance(got, want)
+        one = (ulps <= 1).float().mean().item()
+        detail = (f"bit-equal {(ulps == 0).float().mean().item():.6f}, within one bf16 step "
+                  f"{one:.6f}, max {ulps.max().item()} steps")
+        ok = one >= 0.999 and ulps.max().item() <= 2
+    if not ok:
+        raise AssertionError(f"{name} differs from its plain version: {detail}")
+    return detail
+
+
+def backward_kernel_rows(rng, flush, dev, c, d, scale, card) -> list:
+    """Each backward kernel against its plain version (float32 and bf16) at
+    :data:`BWD_SHAPES`; the bf16 kernel's time beside its bound."""
+    import numpy as np
+    import torch
+
+    from hobot_stereonet_tpu_torch.ops.kernels import correlation as kc
+
+    def randn(*shape, s=1.0):
+        return torch.from_numpy(s * rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+    rows = []
+    for b, h, w in BWD_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            fl, fr, dcorr = randn(b, h, w, c).to(dtype), randn(b, h, w, c).to(dtype), \
+                randn(b, h, w, d).to(dtype)
+            logits = randn(b, h, w, d, s=3.0).to(dtype)
+            cost = randn(b, d, h, w, s=3.0).to(dtype)
+            gd, gc = randn(b, h, w), randn(b, h, w)
+            cases = [
+                (kc.CORRELATION_BWD, "csrc/correlation.cu",
+                 "hobot_stereonet_tpu/ops/pallas/correlation.py:66",
+                 lambda: kc.correlation_volume_backward(dcorr, fl, fr),
+                 lambda: kc.correlation_volume_backward_plain(dcorr, fl, fr),
+                 b * h * w * (d + 4 * c) * fl.element_size(), 4.0 * b * h * w * d * c),
+                (kc.SOFT_ARGMIN_BWD, "csrc/soft_argmin.cu",
+                 "hobot_stereonet_tpu/ops/pallas/correlation.py:124",
+                 lambda: (kc.soft_argmin_confidence_backward(logits, gd, gc, scale),),
+                 lambda: (kc.soft_argmin_confidence_backward_plain(logits, gd, gc, scale),),
+                 b * h * w * (2 * d * logits.element_size() + 8), 10.0 * b * h * w * d),
+                (kc.SOFT_ARGMIN_COST_BWD, "csrc/soft_argmin.cu",
+                 "hobot_stereonet_tpu/ops/pallas/correlation.py:124",
+                 lambda: (kc.soft_argmin_cost_backward(cost, gd, gc, scale),),
+                 lambda: (kc.soft_argmin_cost_backward_plain(cost, gd, gc, scale),),
+                 b * h * w * (2 * d * cost.element_size() + 8), 10.0 * b * h * w * d),
+            ]
+            for name, src, replaces, fn, plain, nbytes, flops in cases:
+                got, want = fn(), plain()
+                torch.cuda.synchronize()
+                detail = "; ".join(check_backward(name, g, p) for g, p in zip(got, want))
+                err = max((g.float() - p.float()).abs().max().item() for g, p in zip(got, want))
+                if dtype != torch.bfloat16:
+                    phase(f"kernel {name} B={b} {h}x{w} float32: {detail}")
+                    continue
+                row = dict(
+                    name=name, route="cuda", source="hobot_stereonet_tpu_torch/" + src,
+                    replaces=replaces, batch=b, shape=f"{h}x{w}", max_abs_err=err,
+                    tolerance=detail, ms=median_ms(fn, flush),
+                    plain_ms=median_ms(plain, flush, iters=5),
+                    bound=bound(nbytes, flops, BF16_FLOPS if name == kc.CORRELATION_BWD
+                                else F32_FLOPS),
+                    library_ms=None)
+                rows.append(row)
+                phase(f"kernel {name} B={b} {h}x{w} bf16: {detail}; kernel {row['ms']:.4f} ms, "
+                      f"plain {row['plain_ms']:.4f} ms, bound {row['bound'][0]:.4f} ms "
+                      f"({row['bound'][1]}, {100 * row['bound'][0] / row['ms']:.0f}% of it); "
+                      f"{card}")
+            del fl, fr, dcorr, logits, cost, gd, gc
+    return rows
+
+
+def train_step_parity(model: str, dtype, dev) -> str:
+    """One ``make_train_step`` of ``model`` from its committed weights on the
+    stored batch, against JAX's stored step; returns a summary."""
+    import numpy as np
+    import torch
+
+    from hobot_stereonet_tpu_torch import reference
+    from hobot_stereonet_tpu_torch.config import StereoNetConfig
+    from hobot_stereonet_tpu_torch.models import build_model
+    from hobot_stereonet_tpu_torch.runtime import training
+    from hobot_stereonet_tpu_torch.runtime.train_loop import to_model_input
+    from hobot_stereonet_tpu_torch.runtime.weights import (_flatten, _unwrap, from_flax_params,
+                                                           to_flax_params)
+
+    stored = reference.load_train_step(model)
+    cfg = StereoNetConfig(compute_dtype=dtype)
+    net = build_model(model, cfg, dev)
+    npz = reference.PARAMS_NPZ if model == "fast" else reference.CLASSIC_PARAMS_NPZ
+    net.load_state_dict(from_flax_params(reference.load_params(npz), cfg, model))
+    opt = training.make_optimizer()
+    params = dict(net.named_parameters())
+    state = training.TrainState(params, opt.init(params), 0)
+    left, right = (to_model_input(torch.from_numpy(stored[k]).to(dev), str(stored["color_space"]))
+                   for k in ("left_u8", "right_u8"))
+    _, m = training.make_train_step(net, opt, cfg.max_disparity)(
+        state, left, right, torch.from_numpy(stored["disparity"]).to(dev))
+    loss, norm = float(m["loss"]), float(m["grad_norm"])
+    flat = {"/".join(k): v for k, v in _flatten(_unwrap(to_flax_params(
+        {k: p.grad for k, p in params.items()})))}
+    want = stored["f32" if dtype == torch.float32 else "bf16"]
+    if dtype == torch.float32:
+        errs = reference.grad_mismatches(flat, want["grads"], 0.0)
+        worst = max(errs, key=lambda e: e[1]) if errs else ("", 0.0)
+        bad = [e for e in errs if e[1] > reference.TRAIN_F32_GRAD_RTOL]
+        ok = (abs(loss - want["loss"]) <= reference.TRAIN_F32_RTOL * abs(want["loss"])
+              and abs(norm - want["grad_norm"]) <= reference.TRAIN_F32_NORM_RTOL[model]
+              * want["grad_norm"] and not bad)
+        detail = (f"loss {loss:.7f} (JAX {want['loss']:.7f}), grad norm {norm:.6f} (JAX "
+                  f"{want['grad_norm']:.6f}), worst gradient {worst[0]} {worst[1]:.3g} relative "
+                  f"L2, {len(bad)} of {len(flat)} beyond {reference.TRAIN_F32_GRAD_RTOL}")
+    else:
+        f32 = stored["f32"]
+        res = reference.bf16_grad_check(flat, want["grads"], f32["grads"])
+        ok = res["ok"] and abs(loss - f32["loss"]) <= reference.BF16_LOSS_FACTOR * abs(
+            want["loss"] - f32["loss"])
+        detail = (f"loss {loss:.6f} (JAX bf16 {want['loss']:.6f}, f32 {f32['loss']:.6f}), "
+                  f"grad norm {norm:.5f} (JAX {want['grad_norm']:.5f}); distance from JAX's "
+                  f"bf16 over JAX bf16's from f32, all gradients: {res['ratio']:.3f} (limit 1); "
+                  f"tensors within that bound alone {res['share']:.3f}; farthest gradient "
+                  f"that JAX's bf16 resolves: {res['worst'][0]} {res['worst'][1]:.3g} from "
+                  f"JAX's f32 (limit {reference.BF16_TENSOR_RTOL})")
+    if not (ok and np.isfinite(loss)):
+        raise AssertionError(f"{model} {dtype} training step on the card vs JAX: {detail}")
+    return detail
+
+
+def training_phase(ctx: dict) -> tuple:
+    """Phase 12; returns (backward kernel rows, {(kernel, None): launches on
+    the training loops' paths})."""
+    import numpy as np
+    import torch
+
+    from hobot_stereonet_tpu_torch.config import Config
+    from hobot_stereonet_tpu_torch.data.loader import BatchIterator, SyntheticStereoDataset
+    from hobot_stereonet_tpu_torch.models import FastStereoNet
+    from hobot_stereonet_tpu_torch.ops.kernels import build
+    from hobot_stereonet_tpu_torch.runtime import checkpoint as ckpt
+    from hobot_stereonet_tpu_torch.runtime import training
+    from hobot_stereonet_tpu_torch.runtime.engine import StereoEngine
+    from hobot_stereonet_tpu_torch.runtime.train_loop import to_model_input, train_synthetic
+    from hobot_stereonet_tpu_torch.utils.profiling import device_trace
+
+    dev, card, rng, cfg = ctx["dev"], ctx["card"], ctx["rng"], ctx["cfg"]
+    t = time.monotonic()
+    k = cfg.model.cost_resolution_divisor
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    rows = backward_kernel_rows(rng, flush, dev, cfg.model.feature_channels,
+                                cfg.model.num_disparities_coarse, float(k), card)
+    del flush
+    phase(f"training: backward kernels checked and timed ({time.monotonic() - t:.1f} s)")
+
+    t = time.monotonic()
+    for model in ("fast", "classic"):
+        for dtype in (torch.float32, torch.bfloat16):
+            build.reset_launch_counts()
+            detail = train_step_parity(model, dtype, dev)
+            phase(f"training parity: {model} {str(dtype).removeprefix('torch.')} one step on the "
+                  f"card vs JAX's stored step: {detail}; launches {dict(build.launch_counts)}")
+    phase(f"training parity: done ({time.monotonic() - t:.1f} s)")
+
+    # The flagship's loop from fresh weights; CLASSIC's reuses the rendered scenes.
+    t = time.monotonic()
+    ck = ROOT / "build" / "train_checkpoint"
+    scenes = SyntheticStereoDataset(size=512, seed=0, height=2 * TRAIN_CROP[0],
+                                    width=2 * TRAIN_CROP[1])
+    res, counts = on_path(TRAIN_PATH, lambda: train_synthetic(
+        steps=TRAIN_STEPS, batch_size=TRAIN_BATCH, crop_hw=TRAIN_CROP, log_every=1,
+        model="fast", dataset=scenes, model_cfg=cfg.model,
+        color_space=cfg.preprocess.color_space, checkpoint_dir=str(ck), device=dev))
+    losses = [h["loss"] for h in res["history"]]
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    phase(f"training loop: flagship (bf16, {cfg.preprocess.color_space}) {TRAIN_STEPS} steps of "
+          f"{TRAIN_BATCH} crops {TRAIN_CROP[0]}x{TRAIN_CROP[1]} from init_params: "
+          f"{res['steps_per_sec']} steps/s (scenes rendered on the host inside the loop, one "
+          f"wait a step for the logged loss); mean loss of steps 1-5 {first:.4f}, of the last 5 "
+          f"{last:.4f}, final EPE {res['final_epe']:.3f} px; launches {counts}; {card} "
+          f"({time.monotonic() - t:.1f} s)")
+    if not (last < first and all(np.isfinite(losses))):
+        raise AssertionError(f"the flagship's loss did not fall: {losses}")
+    if any(counts[n] != TRAIN_STEPS for n in TRAIN_PATH):
+        raise AssertionError(f"expected each of {TRAIN_PATH} once a step: {counts}")
+    launches = {(n, None): counts[n] for n in ("correlation_bwd", "soft_argmin_bwd")}
+
+    # The device step alone: one batch on the card, 10 steps, then one profiled.
+    t = time.monotonic()
+    net = FastStereoNet(cfg.model, device=dev)
+    opt = training.make_optimizer(lr=1e-3, warmup_steps=4, total_steps=100)
+    state = training.create_train_state(net, torch.Generator().manual_seed(1), opt)
+    step = training.make_train_step(net, opt, cfg.model.max_disparity)
+    l8, r8, d8 = next(iter(BatchIterator(scenes, TRAIN_BATCH, TRAIN_CROP, seed=1)))
+    left, right = (to_model_input(torch.from_numpy(a).to(dev), cfg.preprocess.color_space)
+                   for a in (l8, r8))
+    gt = torch.from_numpy(d8).to(dev)
+    for _ in range(3):
+        state, m = step(state, left, right, gt)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        state, m = step(state, left, right, gt)
+    float(m["loss"])
+    device_rate = 10 / (time.perf_counter() - t0)
+    with device_trace(str(ctx["log"] / "train_step")) as prof:
+        state, m = step(state, left, right, gt)
+        float(m["loss"])
+    busy, total, top = profile_summary(prof, top=12)
+    phase(f"training step alone (one batch kept on the card): {device_rate:.2f} steps/s; one "
+          f"profiled step: device busy {100 * busy:.1f} % of the traced window, {total:.3f} ms "
+          f"of device time; the largest kernels and copies: {card}")
+    for name, ms, calls in top:
+        phase(f"profile:   {ms:9.3f} ms  {calls:5d} calls  {name[:110]}")
+    del net, state, step, left, right, gt
+
+    # The checkpoint the loop saved, served at 720p.
+    params = ckpt.load_params(str(ck), like=FastStereoNet(cfg.model, device="cpu"))
+    eng = StereoEngine(cfg, params=params)
+    frames = torch.from_numpy(rng.integers(0, 256, (TRAIN_BATCH, 3 * H * W),
+                                           dtype=np.uint8)).to(dev)
+    with torch.inference_mode():
+        disp = eng.pipeline(frames)[0]
+    torch.cuda.synchronize()
+    if disp.shape != (TRAIN_BATCH, H, W) or not bool(torch.isfinite(disp).all()):
+        raise AssertionError(f"served the trained checkpoint: {tuple(disp.shape)}, finite "
+                             f"{bool(torch.isfinite(disp).all())}")
+    phase(f"training: the saved checkpoint ({ck.name}/params.npz) served {TRAIN_BATCH} frames of "
+          f"{W}x{H} through StereoEngine, disparity finite, median "
+          f"{disp.median().item():.3f} px ({time.monotonic() - t:.1f} s)")
+    del eng, frames, disp
+
+    # CLASSIC (RGB): 10 steps on the scenes the flagship's loop rendered.
+    t = time.monotonic()
+    ccfg = Config()
+    cres, ccounts = on_path(CLASSIC_TRAIN_PATH, lambda: train_synthetic(
+        steps=CLASSIC_TRAIN_STEPS, batch_size=TRAIN_BATCH, crop_hw=TRAIN_CROP, log_every=1,
+        model="classic", dataset=scenes, model_cfg=ccfg.model,
+        color_space=ccfg.preprocess.color_space, device=dev))
+    closs = [h["loss"] for h in cres["history"]]
+    phase(f"training loop: CLASSIC (bf16, rgb) {CLASSIC_TRAIN_STEPS} steps of {TRAIN_BATCH} "
+          f"crops: {cres['steps_per_sec']} steps/s (scenes already rendered); losses "
+          f"{[round(x, 3) for x in closs]}; launches {ccounts}; {card} "
+          f"({time.monotonic() - t:.1f} s)")
+    if not all(np.isfinite(closs)) or ccounts["soft_argmin_cost_bwd"] != CLASSIC_TRAIN_STEPS:
+        raise AssertionError(f"CLASSIC training: losses {closs}, launches {ccounts}")
+    launches[("soft_argmin_cost_bwd", None)] = ccounts["soft_argmin_cost_bwd"]
+    return rows, launches
+
+
 def conv_probe(dev, net, card) -> None:
     """cuDNN's bf16 convs of CLASSIC (``net``, on the card) at one chunk of
     8 frames at 720p: each conv fed the input it gets in the network (its
@@ -1298,6 +1581,12 @@ def main() -> int:
     classic_rows, path_launches[("soft_argmin_cost", None)] = classic_phase(dict(
         dev=dev, card=card, rng=rng, heldout=heldout, log=log))
     rows += classic_rows
+
+    # 12. training ------------------------------------------------------------------
+    train_rows, train_launches = training_phase(dict(dev=dev, card=card, rng=rng, cfg=cfg,
+                                                     log=log))
+    rows += train_rows
+    path_launches.update(train_launches)
 
     def row_launches(r):
         return path_launches[(r["name"], r.get("mode") or r.get("scheme"))]

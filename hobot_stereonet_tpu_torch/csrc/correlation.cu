@@ -261,7 +261,142 @@ int launch_f32(const void* fl, const void* fr, void* out, int B, int H, int W, i
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------- backward
+
+// The vector-Jacobian product of the volume (hst_correlation_backward), as
+// jax.vjp differentiates build_correlation_volume
+// (hobot_stereonet_tpu/ops/cost_volume.py:83-93):
+//
+//   g[x,d]    = T( dcorr[x,d] * f32(1 / divisor) ),  0 where x < d
+//   dfl[x,c]  = T( sum_d g[x,d]   * fr[x-d,c] )                  (f32 sum)
+//   dfr[x',c] = T( sum_d g[x'+d,d] * fl[x'+d,c] ),  x'+d < W
+//
+// XLA divides the cotangent by the constant divisor as a multiply by its
+// float32 reciprocal, rounded to the features' type T; the Gram matrix's
+// transpose then sums bf16 products in f32 and rounds once.
+//
+// Bound on the H100: memory.  At B=8, H=90, W=160, C=32, D=24 (bf16) it
+// must read dcorr, fl and fr and write dfl and dfr, B*H*W*(D + 4C)*2 bytes
+// = 35.0 MB, 10.4 us at 3.35 TB/s; its 4*B*H*W*D*C = 0.35 GFLOP are 5.3 us
+// even at the card's 67 TFLOP/s outside the tensor cores.
+// Design (a first kernel, right before fast): one block per (b, y, 64
+// columns).  It stages g for the columns x0 .. x0+63+D-1 (its own and the
+// D-1 after them, which dfr needs), fl for the same columns and fr for
+// x0-D+1 .. x0+63, as f32 rows in shared memory, zero outside [0, W) and
+// where x < d.  Each thread then owns (x, c) outputs: a warp's 32 lanes
+// read 32 consecutive channels of one row (no bank conflict) and one g
+// value (a broadcast), and sums D products in f32 for dfl and for dfr.
+// Neighbouring blocks re-read D-1 columns of halo (36 % more reads at
+// D=24), which L2 mostly serves.  Not on the tensor cores: a later PR.
+
+constexpr int kBwdTile = 64;
+constexpr int kBwdThreads = 256;
+
+__device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
+  return __bfloat162float(__ldg(p));
+}
+__device__ __forceinline__ float round_to(float v, const float*) { return v; }
+__device__ __forceinline__ float round_to(float v, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+__host__ __device__ inline size_t bwd_smem_bytes(int C, int D) {
+  const int rows = kBwdTile + D - 1;
+  return static_cast<size_t>(rows) * (D + 2 * C) * sizeof(float);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads)
+correlation_backward_kernel(const T* __restrict__ dcorr, const T* __restrict__ fl,
+                            const T* __restrict__ fr, T* __restrict__ dfl,
+                            T* __restrict__ dfr, int H, int W, int C, int D,
+                            float inv_divisor) {
+  extern __shared__ float smem_b[];
+  const int rows = kBwdTile + D - 1;
+  float* g_s = smem_b;                     // [rows][D]: g of columns x0 .. x0+rows-1
+  float* fl_s = g_s + rows * D;            // [rows][C]: fl of columns x0 .. x0+rows-1
+  float* fr_s = fl_s + rows * C;           // [rows][C]: fr of columns x0-D+1 .. x0+kBwdTile-1
+
+  const int x0 = blockIdx.x * kBwdTile;
+  const long long row = static_cast<long long>(blockIdx.z) * H + blockIdx.y;
+  const T* g_row = dcorr + row * W * D;
+  const T* fl_row = fl + row * W * C;
+  const T* fr_row = fr + row * W * C;
+
+  for (int i = threadIdx.x; i < rows * D; i += blockDim.x) {
+    const int r = i / D, d = i - r * D;
+    const int x = x0 + r;
+    float v = 0.0f;
+    if (x < W && x >= d) {
+      v = round_to(__fmul_rn(load_f32(g_row + static_cast<long long>(x) * D + d), inv_divisor),
+                   g_row);
+    }
+    g_s[i] = v;
+  }
+  for (int i = threadIdx.x; i < rows * C; i += blockDim.x) {
+    const int r = i / C, c = i - r * C;
+    const int xl = x0 + r;
+    const int xr = x0 - (D - 1) + r;
+    fl_s[i] = xl < W ? load_f32(fl_row + static_cast<long long>(xl) * C + c) : 0.0f;
+    fr_s[i] = (xr >= 0 && xr < W) ? load_f32(fr_row + static_cast<long long>(xr) * C + c) : 0.0f;
+  }
+  __syncthreads();
+
+  T* dfl_row = dfl + row * W * C;
+  T* dfr_row = dfr + row * W * C;
+  for (int i = threadIdx.x; i < kBwdTile * C; i += blockDim.x) {
+    const int xi = i / C, c = i - xi * C;
+    const int x = x0 + xi;
+    if (x >= W) break;                       // i only grows: the rest are past W too
+    float a = 0.0f, b = 0.0f;
+    for (int d = 0; d < D; ++d) {
+      // dfl: fr column x-d sits at fr_s row xi-d+D-1 (zero where x-d < 0, g too).
+      a = __fmaf_rn(g_s[xi * D + d], fr_s[(xi - d + D - 1) * C + c], a);
+      // dfr: g and fl of column x+d (zero past W).
+      b = __fmaf_rn(g_s[(xi + d) * D + d], fl_s[(xi + d) * C + c], b);
+    }
+    store(dfl_row + static_cast<long long>(x) * C + c, a);
+    store(dfr_row + static_cast<long long>(x) * C + c, b);
+  }
+}
+
+template <typename T>
+int launch_backward(const void* dcorr, const void* fl, const void* fr, void* dfl, void* dfr,
+                    int B, int H, int W, int C, int D, float inv_divisor, cudaStream_t stream) {
+  const size_t smem = bwd_smem_bytes(C, D);
+  if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(correlation_backward_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  dim3 grid((W + kBwdTile - 1) / kBwdTile, H, B);
+  correlation_backward_kernel<T><<<grid, kBwdThreads, smem, stream>>>(
+      static_cast<const T*>(dcorr), static_cast<const T*>(fl), static_cast<const T*>(fr),
+      static_cast<T*>(dfl), static_cast<T*>(dfr), H, W, C, D, inv_divisor);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+// dcorr [B,H,W,D] and fl, fr [B,H,W,C] -> dfl, dfr [B,H,W,C], all contiguous and of one
+// type; inv_divisor is float32(1 / divisor) (the wrapper passes it).
+extern "C" int hst_correlation_backward(const void* dcorr, const void* fl, const void* fr,
+                                        void* dfl, void* dfr, int B, int H, int W, int C,
+                                        int D, float inv_divisor, int is_bf16, void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || D <= 0 || B > 65535 || H > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? launch_backward<__nv_bfloat16>(dcorr, fl, fr, dfl, dfr, B, H, W, C, D,
+                                                  inv_divisor, s)
+                 : launch_backward<float>(dcorr, fl, fr, dfl, dfr, B, H, W, C, D,
+                                          inv_divisor, s);
+}
 
 // bf16 needs C % 16 == 0, C <= 256 and 16-byte aligned fl and fr; the wrapper checks
 // both and raises, and this returns cudaErrorInvalidValue for them too.

@@ -99,6 +99,10 @@ soft_argmin_vector_kernel(const __nv_bfloat16* __restrict__ logits,
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
 
 template <typename T>
 __global__ void soft_argmin_generic_kernel(const T* __restrict__ logits,
@@ -179,7 +183,165 @@ int launch_dlead(const void* cost, void* disp, void* conf, long long n, long lon
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------- backward
+
+// The vector-Jacobian product of (disp, conf) with respect to the logits
+// (hst_soft_argmin_backward) or the D-leading cost
+// (hst_soft_argmin_dlead_backward), as jax.vjp differentiates soft_argmin and
+// disparity_confidence (hobot_stereonet_tpu/ops/soft_argmin.py:17, :33) in
+// float32.  With x = logits (= -cost), gd and gc the cotangents of disp and
+// conf and s the disparity scale:
+//
+//   w_j = exp(x_j - max x),  y = sum_j w_j,  r2 = 1 / (y * y)
+//   ct_j = (s * gd) * j
+//   dg_j = (ct_j / y - sum_i (ct_i * r2) * w_i) * w_j          (disp)
+//   ci_j = (gc / n) * [w_j / y == max_i w_i / y]               (conf: the max's
+//   cs_j = (ci_j / y - sum_i (ci_i * r2) * w_i) * w_j           n tied entries share gc)
+//   dx_j = cs_j + dg_j
+//
+// which is s * gd * p_j * (j - E[d]) + gc * (p_m [j in argmax] / n - p_j p_m)
+// written in the order of XLA's operations, the sums in index order.  The
+// result is rounded once to the input's type: the logits' gradient is dx,
+// the cost's -dx.  The softmax is recomputed from the input; p is not stored.
+// A null gc (or gd) is a zero cotangent.
+//
+// Bound on the H100: memory.  At B=8, 90x160, D=24, bf16 it must read the
+// logits and the two cotangents and write the gradient, B*h*w*(2D*2 + 8)
+// bytes = 12.0 MB, 3.6 us at 3.35 TB/s; its 24 exponentials and divisions a
+// pixel are far below the card's rate.
+// Design (a first kernel): one thread a pixel, as the forward.  At D = 24
+// the inputs and exponentials stay in registers and memory is read once;
+// other D take five passes over the pixel's values (the later ones from L1).
+// The channel-last variant reads and writes its pixel's D contiguous
+// values one at a time (L1 serves the warp's strided accesses); the
+// D-leading variant reads and writes D planes h*w apart, so a warp's 32
+// adjacent pixels touch 32 contiguous values per candidate, coalesced.
+
+template <typename T, int KD>
+__device__ __forceinline__ void softmax_vjp(const T* __restrict__ in, long long stride, int nd,
+                                            float sign, float sgd, bool has_gc, float gc,
+                                            T* __restrict__ out) {
+  constexpr bool kCached = KD > 0;
+  const int D = kCached ? KD : nd;
+  float vc[kCached ? KD : 1], wc[kCached ? KD : 1];
+  if constexpr (kCached) {
+#pragma unroll
+    for (int j = 0; j < KD; ++j) vc[j] = sign * to_f32(__ldg(in + j * stride));
+  }
+  auto val = [&](int j) -> float {
+    if constexpr (kCached) return vc[j];
+    else return sign * to_f32(__ldg(in + j * stride));
+  };
+  float m = val(0);
+#pragma unroll
+  for (int j = 1; j < D; ++j) m = fmaxf(m, val(j));
+  float y = 0.0f;
+#pragma unroll
+  for (int j = 0; j < D; ++j) {
+    const float e = expf(__fsub_rn(val(j), m));
+    if constexpr (kCached) wc[j] = e;
+    y = __fadd_rn(y, e);
+  }
+  auto w = [&](int j) -> float {
+    if constexpr (kCached) return wc[j];
+    else return expf(__fsub_rn(val(j), m));
+  };
+  const float r2 = __fdiv_rn(1.0f, __fmul_rn(y, y));
+  // The maximum probability and its ties, over p_j = w_j / y as computed.
+  float pmax = 0.0f, ties = 0.0f;
+  if (has_gc) {
+#pragma unroll
+    for (int j = 0; j < D; ++j) pmax = fmaxf(pmax, __fdiv_rn(w(j), y));
+#pragma unroll
+    for (int j = 0; j < D; ++j) ties = __fadd_rn(ties, __fdiv_rn(w(j), y) == pmax ? 1.0f : 0.0f);
+  }
+  const float gshare = has_gc ? __fdiv_rn(gc, ties) : 0.0f;
+  float sum_d = 0.0f, sum_c = 0.0f;
+#pragma unroll
+  for (int j = 0; j < D; ++j) {
+    const float wj = w(j);
+    const float ct = __fmul_rn(sgd, static_cast<float>(j));
+    sum_d = __fadd_rn(sum_d, __fmul_rn(__fmul_rn(ct, r2), wj));
+    if (has_gc && __fdiv_rn(wj, y) == pmax) sum_c = __fadd_rn(sum_c, __fmul_rn(__fmul_rn(gshare, r2), wj));
+  }
+#pragma unroll
+  for (int j = 0; j < D; ++j) {
+    const float wj = w(j);
+    const float ct = __fmul_rn(sgd, static_cast<float>(j));
+    float dx = __fmul_rn(__fsub_rn(__fdiv_rn(ct, y), sum_d), wj);
+    if (has_gc) {
+      const float ci = __fdiv_rn(wj, y) == pmax ? gshare : 0.0f;
+      dx = __fadd_rn(__fmul_rn(__fsub_rn(__fdiv_rn(ci, y), sum_c), wj), dx);
+    }
+    store_as(out + j * stride, sign * dx);
+  }
+}
+
+template <typename T, int KD>
+__global__ void __launch_bounds__(kThreads)
+soft_argmin_backward_kernel(const T* __restrict__ x, const float* __restrict__ gd,
+                            const float* __restrict__ gc, T* __restrict__ dx, long long N,
+                            long long plane, int nd, float sign, float scale) {
+  const long long n = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (n >= N) return;
+  // plane == 0: channel-last rows of nd values; else D-leading [B, nd, plane].
+  long long base, stride;
+  if (plane == 0) {
+    base = n * nd;
+    stride = 1;
+  } else {
+    const long long b = n / plane;
+    base = b * nd * plane + (n - b * plane);
+    stride = plane;
+  }
+  const float sgd = gd ? __fmul_rn(__ldg(gd + n), scale) : 0.0f;
+  const float g = gc ? __ldg(gc + n) : 0.0f;
+  softmax_vjp<T, KD>(x + base, stride, nd, sign, sgd, gc != nullptr, g, dx + base);
+}
+
+template <typename T>
+int launch_backward(const void* x, const void* gd, const void* gc, void* dx, long long n,
+                    long long plane, int D, float sign, float scale, cudaStream_t s) {
+  const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
+  const T* xp = static_cast<const T*>(x);
+  const float* gdp = static_cast<const float*>(gd);
+  const float* gcp = static_cast<const float*>(gc);
+  T* dxp = static_cast<T*>(dx);
+  if (D == kVectorD) {
+    soft_argmin_backward_kernel<T, kVectorD><<<blocks, kThreads, 0, s>>>(
+        xp, gdp, gcp, dxp, n, plane, D, sign, scale);
+  } else {
+    soft_argmin_backward_kernel<T, 0><<<blocks, kThreads, 0, s>>>(
+        xp, gdp, gcp, dxp, n, plane, D, sign, scale);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+// logits [N, D] contiguous; gd, gc [N] f32 (either may be null: a zero
+// cotangent); dlogits [N, D] of the logits' type.
+extern "C" int hst_soft_argmin_backward(const void* logits, const void* gd, const void* gc,
+                                        void* dlogits, int N, int D, float scale, int is_bf16,
+                                        void* stream) {
+  if (N <= 0 || D <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? launch_backward<__nv_bfloat16>(logits, gd, gc, dlogits, N, 0, D, 1.0f, scale, s)
+                 : launch_backward<float>(logits, gd, gc, dlogits, N, 0, D, 1.0f, scale, s);
+}
+
+// cost [B, D, H, W] contiguous (plane = H*W); gd, gc [B, H, W] f32 (either may
+// be null); dcost [B, D, H, W] of the cost's type.
+extern "C" int hst_soft_argmin_dlead_backward(const void* cost, const void* gd, const void* gc,
+                                              void* dcost, int B, int D, int plane, float scale,
+                                              int is_bf16, void* stream) {
+  if (B <= 0 || D <= 0 || plane <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long n = static_cast<long long>(B) * plane;
+  return is_bf16 ? launch_backward<__nv_bfloat16>(cost, gd, gc, dcost, n, plane, D, -1.0f,
+                                                  scale, s)
+                 : launch_backward<float>(cost, gd, gc, dcost, n, plane, D, -1.0f, scale, s);
+}
 
 // cost [B, D, H, W] contiguous (plane = H*W), lower is better; disp, conf
 // [B, H, W] f32.

@@ -1,16 +1,92 @@
-"""Indexable datasets for the evaluation.
+"""Indexable datasets and the training batches.
 
-Counterpart of ``SyntheticStereoDataset`` in
-``hobot_stereonet_tpu/data/loader.py`` and of ``StereoSample`` in
+Counterpart of ``hobot_stereonet_tpu/data/loader.py`` (``pad_to_multiple``,
+``random_crop``, ``color_jitter``, ``BatchIterator``,
+``SyntheticStereoDataset``) and of ``StereoSample`` in
 ``hobot_stereonet_tpu/data/sceneflow.py``.  Numpy only: scenes are made on
-the host, one per index, from the procedural generator (``synthetic.py``).
+the host, one per index, from the procedural generator (``synthetic.py``),
+and the batches draw from ``np.random.default_rng`` in the reference's
+order, so the same seed gives the reference's batches bit for bit.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Iterator, Sequence, Tuple
 
 import numpy as np
+
+
+def pad_to_multiple(img: np.ndarray, multiple: int, value: float = 0.0) -> np.ndarray:
+    """Pad H, W at the bottom and right up to a multiple of ``multiple``."""
+    h, w = img.shape[:2]
+    ph, pw = (-h) % multiple, (-w) % multiple
+    if ph == 0 and pw == 0:
+        return img
+    pad = [(0, ph), (0, pw)] + [(0, 0)] * (img.ndim - 2)
+    return np.pad(img, pad, constant_values=value)
+
+
+def random_crop(rng: np.random.Generator, left: np.ndarray, right: np.ndarray,
+                disp: np.ndarray, crop_hw: Tuple[int, int]):
+    """The same random ``crop_hw`` window of both eyes and the disparity,
+    zero-padded at the bottom and right first if the scene is smaller."""
+    ch, cw = crop_hw
+    h, w = left.shape[:2]
+    if h < ch or w < cw:
+        ph, pw = max(ch - h, 0), max(cw - w, 0)
+        left = np.pad(left, [(0, ph), (0, pw), (0, 0)])
+        right = np.pad(right, [(0, ph), (0, pw), (0, 0)])
+        disp = np.pad(disp, [(0, ph), (0, pw)])
+        h, w = left.shape[:2]
+    y = int(rng.integers(0, h - ch + 1))
+    x = int(rng.integers(0, w - cw + 1))
+    return left[y:y + ch, x:x + cw], right[y:y + ch, x:x + cw], disp[y:y + ch, x:x + cw]
+
+
+def color_jitter(rng: np.random.Generator, img: np.ndarray,
+                 brightness: float = 0.2, contrast: float = 0.2) -> np.ndarray:
+    """Random contrast and brightness of one eye (uint8 in, uint8 out)."""
+    f = img.astype(np.float32)
+    f = f * (1 + rng.uniform(-contrast, contrast)) + rng.uniform(-brightness, brightness) * 255.0
+    return np.clip(f, 0, 255).astype(np.uint8)
+
+
+@dataclass
+class BatchIterator:
+    """Endless (left uint8 [B,h,w,3], right uint8, disparity float32 [B,h,w])
+    batches from an indexable dataset of :class:`StereoSample`: a shuffled
+    order per epoch, a random crop of each scene and a colour jitter of
+    each eye, all from ``default_rng(seed)``."""
+
+    dataset: Sequence
+    batch_size: int
+    crop_hw: Tuple[int, int] = (256, 512)
+    seed: int = 0
+    augment: bool = True
+    shuffle: bool = True
+
+    def __iter__(self) -> Iterator[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+        if len(self.dataset) < self.batch_size:
+            raise ValueError(f"dataset ({len(self.dataset)}) smaller than batch_size "
+                             f"({self.batch_size}): the iterator would never yield")
+        rng = np.random.default_rng(self.seed)
+        order = np.arange(len(self.dataset))
+        while True:
+            if self.shuffle:
+                rng.shuffle(order)
+            for start in range(0, len(order) - self.batch_size + 1, self.batch_size):
+                ls, rs, ds = [], [], []
+                for i in order[start:start + self.batch_size]:
+                    s = self.dataset[int(i)]
+                    l, r, d = random_crop(rng, s.left, s.right, s.disparity, self.crop_hw)
+                    if self.augment:
+                        l = color_jitter(rng, l)
+                        r = color_jitter(rng, r)
+                    ls.append(l)
+                    rs.append(r)
+                    ds.append(d)
+                yield np.stack(ls), np.stack(rs), np.stack(ds)
 
 
 @dataclass

@@ -24,8 +24,9 @@ from ..config import StereoNetConfig, resolve_device
 from ..ops.cost_volume import build_correlation_volume
 from ..ops.soft_argmin import soft_argmin_confidence
 from ..ops.upsample import convex_upsample
-from .layers import ConvBlock, ResBlock2D, SameConv2d
-from .stereonet import FeatureTower, _nchw, _nhwc, add_refinement_nets, channels_last, refine
+from .layers import ConvBlock, ResBlock2D, SameConv2d, set_compute_dtype
+from .stereonet import (FeatureTower, _nchw, _nhwc, add_refinement_nets, channels_last, refine,
+                        tower_features)
 
 
 class CorrelationAggregation2D(nn.Module):
@@ -72,6 +73,7 @@ class FastStereoNet(nn.Module):
             else:
                 add_refinement_nets(self, cfg)
         channels_last(self)
+        set_compute_dtype(self, cfg.compute_dtype)
 
     def forward(self, left: torch.Tensor, right: torch.Tensor) -> Dict[str, Any]:
         """left, right [B,H,W,3] -> {"disparity" [B,H,W], "confidence"
@@ -82,7 +84,7 @@ class FastStereoNet(nn.Module):
         k = cfg.cost_resolution_divisor
         # The first conv casts the input to the compute dtype; its int8
         # counterpart (ops/quant.py) quantizes the input as it comes.
-        feats = _nhwc(self.FeatureTower_0(_nchw(torch.cat([left, right], 0))))
+        feats = tower_features(self, left, right)
         feat_l, feat_r = feats[:b], feats[b:]
 
         # [B, D, h, w] view -> channel-last [B, h, w, D]

@@ -17,9 +17,18 @@ Where the reference's numerics differ from PyTorch's defaults:
     applies it after the add;
   * a conv rounds its sum to the compute dtype and then adds the bias in
     that dtype, as flax's ``nn.Conv`` does: two roundings, not one.
+
+Weights are float32 master weights, as flax's ``param_dtype=float32``: a
+conv computes in its ``compute_dtype`` (set from the config by
+:func:`set_compute_dtype`; None means its weight's dtype) and casts the
+weight to it inside ``forward``, so bf16 training keeps float32 weights.
+Serving casts the weights once (:func:`cast_convs`), which gives the same
+bits.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -40,29 +49,35 @@ def num_groups(features: int) -> int:
 
 class SameConv2d(nn.Conv2d):
     """``nn.Conv2d`` with flax's "SAME" padding, symmetric or not.  Like
-    flax's ``nn.Conv`` it casts its input to its own (the compute) dtype."""
+    flax's ``nn.Conv`` it casts its input and its weight to the compute dtype."""
+
+    compute_dtype: Optional[torch.dtype] = None
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int = 3, stride: int = 1,
                  dilation: int = 1):
         super().__init__(in_ch, out_ch, kernel, stride=stride, padding=0, dilation=dilation)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(self.weight.dtype)
+        dt = self.compute_dtype or self.weight.dtype
+        x, wt = x.to(dt), self.weight.to(dt)
         kh, kw = self.kernel_size
         ph = same_pads(x.shape[2], kh, self.stride[0], self.dilation[0])
         pw = same_pads(x.shape[3], kw, self.stride[1], self.dilation[1])
         if ph[0] == ph[1] and pw[0] == pw[1]:
-            y = F.conv2d(x, self.weight, None, self.stride, (ph[0], pw[0]), self.dilation)
+            y = F.conv2d(x, wt, None, self.stride, (ph[0], pw[0]), self.dilation)
         else:
-            y = F.conv2d(F.pad(x, (pw[0], pw[1], ph[0], ph[1])), self.weight, None,
+            y = F.conv2d(F.pad(x, (pw[0], pw[1], ph[0], ph[1])), wt, None,
                          self.stride, 0, self.dilation)
-        return y + self.bias.to(y.dtype).view(1, -1, 1, 1)
+        return y + self.bias.to(dt).view(1, -1, 1, 1)
 
 
 class SameConv3d(nn.Conv3d):
     """``nn.Conv3d`` over (D, H, W) with flax's "SAME" padding at stride 1
-    (odd kernels: symmetric); casts its input to the compute dtype, rounds
-    the sum to it and then adds the bias in it, as :class:`SameConv2d`."""
+    (odd kernels: symmetric); casts its input and weight to the compute
+    dtype, rounds the sum to it and then adds the bias in it, as
+    :class:`SameConv2d`."""
+
+    compute_dtype: Optional[torch.dtype] = None
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int = 3):
         if kernel % 2 != 1:
@@ -70,8 +85,9 @@ class SameConv3d(nn.Conv3d):
         super().__init__(in_ch, out_ch, kernel, padding=kernel // 2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv3d(x.to(self.weight.dtype), self.weight, None, 1, self.padding)
-        return y + self.bias.to(y.dtype).view(1, -1, 1, 1, 1)
+        dt = self.compute_dtype or self.weight.dtype
+        y = F.conv3d(x.to(dt), self.weight.to(dt), None, 1, self.padding)
+        return y + self.bias.to(dt).view(1, -1, 1, 1, 1)
 
 
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
@@ -135,6 +151,15 @@ class ConvBlock3D(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return leaky_relu(self.GroupNorm_0(self.Conv_0(x)))
+
+
+def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Every conv of ``module`` computes in ``dtype`` whatever its weights'
+    dtype (flax's ``dtype`` beside ``param_dtype``)."""
+    for m in module.modules():
+        if isinstance(m, (SameConv2d, SameConv3d)):
+            m.compute_dtype = dtype
+    return module
 
 
 def cast_convs(module: nn.Module, dtype: torch.dtype) -> nn.Module:

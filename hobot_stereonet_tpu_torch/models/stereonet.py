@@ -18,8 +18,9 @@ Counterpart of ``hobot_stereonet_tpu/models/stereonet.py``:
 
 Inputs and outputs keep ``FastStereoNet``'s layouts: [B,H,W,3] in;
 ``disparity`` [B,H,W], ``confidence`` [B,h,w] and ``pyramid`` (coarse to
-fine) out, all float32.  The reference's ``cfg.remat`` (rematerialization
-for training) changes no forward result and is ignored here.
+fine) out, all float32.  ``cfg.remat`` recomputes the feature tower in
+the backward pass instead of keeping its activations (``torch.utils.checkpoint``,
+as the reference's ``nn.remat(FeatureTower)``); it changes no result.
 """
 
 from __future__ import annotations
@@ -28,12 +29,13 @@ from typing import Any, Dict, List
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import StereoNetConfig, resolve_device
 from ..ops.cost_volume import build_cost_volume
 from ..ops.soft_argmin import soft_argmin_cost
 from ..ops.upsample import downsample_avg, upsample2x_bilinear
-from .layers import ConvBlock, ConvBlock3D, ResBlock2D, SameConv2d, SameConv3d
+from .layers import ConvBlock, ConvBlock3D, ResBlock2D, SameConv2d, SameConv3d, set_compute_dtype
 
 # Dilations of a RefinementNet's residual blocks, repeated past six blocks.
 REFINE_DILATIONS = (1, 2, 4, 8, 1, 1)
@@ -86,6 +88,16 @@ class FeatureTower(nn.Module):
         for i in range(self._res):
             x = getattr(self, f"ResBlock2D_{i}")(x)
         return self.Conv_0(x)
+
+
+def tower_features(module: nn.Module, left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
+    """``module.FeatureTower_0`` on both eyes at once (batch 2B) -> [2B,h,w,C];
+    rematerialized in the backward pass when ``module.cfg.remat``."""
+    x = _nchw(torch.cat([left, right], 0))
+    tower = module.FeatureTower_0
+    if module.cfg.remat and torch.is_grad_enabled():
+        return _nhwc(checkpoint(tower, x, use_reentrant=False))
+    return _nhwc(tower(x))
 
 
 class CostAggregation(nn.Module):
@@ -188,6 +200,7 @@ class StereoNet(nn.Module):
             self.CostAggregation_0 = CostAggregation(cfg)
             add_refinement_nets(self, cfg)
         channels_last(self)
+        set_compute_dtype(self, cfg.compute_dtype)
 
     def forward(self, left: torch.Tensor, right: torch.Tensor) -> Dict[str, Any]:
         """left, right [B,H,W,3] -> {"disparity" [B,H,W], "confidence"
@@ -195,7 +208,7 @@ class StereoNet(nn.Module):
         all float32."""
         cfg = self.cfg
         b = left.shape[0]
-        feats = _nhwc(self.FeatureTower_0(_nchw(torch.cat([left, right], 0))))
+        feats = tower_features(self, left, right)
         volume = build_cost_volume(feats[:b], feats[b:], cfg.num_disparities_coarse)
         cost = self.CostAggregation_0(volume)               # [B, D, h, w]
         disp, conf = soft_argmin_cost(cost, scale=float(cfg.cost_resolution_divisor))

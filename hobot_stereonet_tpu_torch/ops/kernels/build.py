@@ -49,6 +49,12 @@ _SIGNATURES = {
     "hst_soft_argmin": (_P, _P, _P, _I, _I, _F, _I, _I, _P),
     # cost, disp, conf, B, D, H*W, scale, is_bf16, stream
     "hst_soft_argmin_dlead": (_P, _P, _P, _I, _I, _I, _F, _I, _P),
+    # dcorr, fl, fr, dfl, dfr, B, H, W, C, D, 1/divisor, is_bf16, stream
+    "hst_correlation_backward": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
+    # logits, gd, gc, dlogits, N, D, scale, is_bf16, stream
+    "hst_soft_argmin_backward": (_P, _P, _P, _P, _I, _I, _F, _I, _P),
+    # cost, gd, gc, dcost, B, D, H*W, scale, is_bf16, stream
+    "hst_soft_argmin_dlead_backward": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
     # x, w, s_k, bias, sx, qs, y, plan (int8_conv.PlanArgs), per_sample, divide, stream
     "hst_int8_conv": (_P,) * 8 + (_I, _I, _P),
 }

@@ -7,6 +7,17 @@ sources are ``csrc/correlation.cu`` and ``csrc/soft_argmin.cu``; the
 soft-argmin comes in two layouts: channel-last logits [B,H,W,D] (the
 flagship's, :func:`soft_argmin_confidence`) and a D-leading cost
 [B,D,H,W] (the CLASSIC StereoNet's, :func:`soft_argmin_cost`).
+
+The three public functions are differentiable: each is a
+``torch.autograd.Function`` whose backward is a kernel too
+(``hst_correlation_backward``, ``hst_soft_argmin_backward``,
+``hst_soft_argmin_dlead_backward``) on CUDA tensors and an explicit formula
+(``*_backward_plain``) on CPU tensors.  The backward follows the
+vector-Jacobian product that ``jax.vjp`` takes of the JAX package's XLA
+functions (``build_correlation_volume``, ``soft_argmin``,
+``disparity_confidence``), rounding where it rounds.  Under
+``torch.no_grad`` or ``torch.inference_mode`` the forward is what it was:
+the same kernel launches, the same bits.
 """
 
 from __future__ import annotations
@@ -16,10 +27,14 @@ import math
 import torch
 
 from . import build
+from .numerics import reciprocal_f32
 
 CORRELATION = "correlation"
 SOFT_ARGMIN = "soft_argmin"
 SOFT_ARGMIN_COST = "soft_argmin_cost"
+CORRELATION_BWD = "correlation_bwd"
+SOFT_ARGMIN_BWD = "soft_argmin_bwd"
+SOFT_ARGMIN_COST_BWD = "soft_argmin_cost_bwd"
 SOFT_ARGMIN_VECTOR_D = 24     # D of the one-pass kernel (the flagship's coarse D)
 _DTYPES = (torch.float32, torch.bfloat16)
 _PLAIN_DTYPES = _DTYPES + (torch.float64,)    # the plain soft-argmin also takes float64
@@ -111,12 +126,31 @@ def bf16_step(t: torch.Tensor, steps: int) -> torch.Tensor:
 
 def correlation_volume(feat_l: torch.Tensor, feat_r: torch.Tensor,
                        num_disparities: int) -> torch.Tensor:
-    """Channel-last correlation volume [B,H,W,D] in the features' dtype.
+    """Channel-last correlation volume [B,H,W,D] in the features' dtype,
+    differentiable in both maps (:func:`correlation_volume_backward`).
 
     CUDA tensors go through ``csrc/correlation.cu``: bf16 on the tensor
     cores (C a multiple of 16 up to 256, 16-byte aligned maps), f32 in
     full f32.  CPU tensors go through :func:`correlation_volume_plain`.
     """
+    return _CorrelationVolume.apply(feat_l, feat_r, num_disparities)
+
+
+class _CorrelationVolume(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, feat_l, feat_r, num_disparities):
+        ctx.save_for_backward(feat_l, feat_r)
+        return _correlation_forward(feat_l, feat_r, num_disparities)
+
+    @staticmethod
+    def backward(ctx, dcorr):
+        feat_l, feat_r = ctx.saved_tensors
+        dfl, dfr = correlation_volume_backward(dcorr.contiguous(), feat_l, feat_r)
+        return dfl, dfr, None
+
+
+def _correlation_forward(feat_l: torch.Tensor, feat_r: torch.Tensor,
+                         num_disparities: int) -> torch.Tensor:
     if feat_l.device.type == "cpu":
         return correlation_volume_plain(feat_l, feat_r, num_disparities)
     _check_features(feat_l, feat_r)
@@ -142,6 +176,78 @@ def correlation_volume(feat_l: torch.Tensor, feat_r: torch.Tensor,
     build.check(CORRELATION, err)
     build.launch_counts[CORRELATION] += 1
     return out
+
+
+def _check_cotangent(name: str, t, shape, dtype=None, device=None) -> None:
+    """Raise unless ``t`` (None passes) has ``shape`` and, where given, ``dtype``
+    and ``device``."""
+    if t is None:
+        return
+    if (tuple(t.shape) != tuple(shape) or dtype not in (None, t.dtype)
+            or device not in (None, t.device)):
+        raise ValueError(f"{name}: expected a cotangent of shape {tuple(shape)} "
+                         f"({dtype or 'any dtype'}, on {device or 'any device'}), got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def correlation_volume_backward_plain(dcorr: torch.Tensor, feat_l: torch.Tensor,
+                                      feat_r: torch.Tensor):
+    """The gradients (dfl, dfr) [B,H,W,C] of :func:`correlation_volume_plain`
+    given ``dcorr`` [B,H,W,D], as explicit formulas:
+
+      ``g[x,d] = T(dcorr[x,d] * f32(1/divisor))``, zero where ``x < d``;
+      ``dfl[x] = T(sum_d g[x,d] fr[x-d])``, ``dfr[x'] = T(sum_d g[x'+d,d] fl[x'+d])``,
+
+    with T the features' dtype and the sums in float32 in the order of d.
+    That is ``jax.vjp`` of ``build_correlation_volume``: XLA divides by the
+    constant divisor as a multiply by its float32 reciprocal, and the Gram
+    matrix's transpose sums in float32 and rounds once.
+    """
+    _check_features(feat_l, feat_r)
+    b, h, w, c = feat_l.shape
+    d_total = dcorr.shape[-1]
+    dt = feat_l.dtype
+    _check_cotangent(CORRELATION_BWD, dcorr, (b, h, w, d_total), dt, feat_l.device)
+    inv = reciprocal_f32(correlation_divisor(c, dt))
+    g = (dcorr.float() * inv).to(dt).float()
+    x = torch.arange(w, device=dcorr.device)[:, None]
+    d = torch.arange(d_total, device=dcorr.device)[None]
+    g = torch.where(x >= d, g, 0.0)
+    fl, fr = feat_l.float(), feat_r.float()
+    dfl, dfr = torch.zeros_like(fl), torch.zeros_like(fr)
+    for k in range(min(d_total, w)):
+        gk = g[:, :, k:, k:k + 1]
+        dfl[:, :, k:] += gk * fr[:, :, : w - k]
+        dfr[:, :, : w - k] += gk * fl[:, :, k:]
+    return dfl.to(dt), dfr.to(dt)
+
+
+def correlation_volume_backward(dcorr: torch.Tensor, feat_l: torch.Tensor,
+                                feat_r: torch.Tensor):
+    """(dfl, dfr): the backward of :func:`correlation_volume`.
+
+    CUDA tensors go through ``hst_correlation_backward``
+    (``csrc/correlation.cu``), CPU tensors through
+    :func:`correlation_volume_backward_plain`.
+    """
+    if feat_l.device.type == "cpu":
+        return correlation_volume_backward_plain(dcorr, feat_l, feat_r)
+    _check_features(feat_l, feat_r)
+    if feat_l.device.type != "cuda":
+        raise ValueError(f"{CORRELATION_BWD}: unsupported device {feat_l.device}")
+    b, h, w, c = feat_l.shape
+    d = dcorr.shape[-1]
+    _check_cotangent(CORRELATION_BWD, dcorr, (b, h, w, d), feat_l.dtype, feat_l.device)
+    if not (dcorr.is_contiguous() and feat_l.is_contiguous() and feat_r.is_contiguous()):
+        raise ValueError(f"{CORRELATION_BWD}: dcorr and the features must be contiguous")
+    dfl, dfr = torch.empty_like(feat_l), torch.empty_like(feat_r)
+    err = build.library().hst_correlation_backward(
+        dcorr.data_ptr(), feat_l.data_ptr(), feat_r.data_ptr(), dfl.data_ptr(), dfr.data_ptr(),
+        b, h, w, c, d, reciprocal_f32(correlation_divisor(c, feat_l.dtype)),
+        int(feat_l.dtype == torch.bfloat16), build.stream_handle(feat_l))
+    build.check(CORRELATION_BWD, err)
+    build.launch_counts[CORRELATION_BWD] += 1
+    return dfl, dfr
 
 
 def _check_logits(logits: torch.Tensor, dtypes=_DTYPES) -> None:
@@ -173,13 +279,115 @@ def uses_vector_kernel(logits: torch.Tensor) -> bool:
             and logits.data_ptr() % 16 == 0)
 
 
+def _seq_sum(t: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in index order (as the kernels sum), keepdim."""
+    acc = t[..., :1]
+    for j in range(1, t.shape[-1]):
+        acc = acc + t[..., j:j + 1]
+    return acc
+
+
+def _softmax_vjp(x: torch.Tensor, gd, gc, scale: float) -> torch.Tensor:
+    """d(disp, conf)/dx . (gd, gc) for ``p = softmax(x)`` over the last axis,
+    ``disp = scale * sum_j j p_j``, ``conf = max_j p_j``; in x's dtype (float32
+    or float64), in the order of XLA's operations (``csrc/soft_argmin.cu``
+    writes the same).  ``gd`` or ``gc`` None is a zero cotangent; the max's
+    n tied entries share ``gc`` equally, as ``jnp.max``'s VJP does."""
+    w = torch.exp(x - x.amax(-1, keepdim=True))
+    y = _seq_sum(w)
+    r2 = 1.0 / (y * y)
+    dx = torch.zeros_like(x)
+    if gd is not None:
+        ct = (gd.to(x.dtype) * scale)[..., None] * torch.arange(
+            x.shape[-1], dtype=x.dtype, device=x.device)
+        dx = (ct / y - _seq_sum((ct * r2) * w)) * w
+    if gc is not None:
+        p = w / y
+        ind = (p == p.amax(-1, keepdim=True)).to(x.dtype)
+        ci = (gc.to(x.dtype)[..., None] / _seq_sum(ind)) * ind
+        dx = (ci / y - _seq_sum((ci * r2) * w)) * w + dx
+    return dx
+
+
+def soft_argmin_confidence_backward_plain(logits: torch.Tensor, gd, gc, scale: float = 1.0):
+    """The gradient of :func:`soft_argmin_confidence_plain`'s (disp, conf)
+    with respect to the logits [B,H,W,D], given their cotangents ``gd``,
+    ``gc`` [B,H,W] (either may be None), as explicit formulas:
+
+      ``dlogit_j = scale gd p_j (j - E[d]) + gc (p_m [j in argmax] / n - p_j p_m)``,
+
+    computed in float32 (float64 for float64 logits) in the order in which
+    XLA computes ``jax.vjp`` of ``soft_argmin`` and ``disparity_confidence``
+    and rounded once to the logits' dtype.
+    """
+    _check_logits(logits, _PLAIN_DTYPES)
+    for g in (gd, gc):
+        _check_cotangent(SOFT_ARGMIN_BWD, g, logits.shape[:3])
+    dt = torch.promote_types(logits.dtype, torch.float32)
+    return _softmax_vjp(logits.to(dt), gd, gc, scale).to(logits.dtype)
+
+
+def _soft_argmin_backward_launch(name, fn, x, gd, gc, scale, shape, *dims):
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: the input must be contiguous")
+    for g in (gd, gc):
+        _check_cotangent(name, g, shape, torch.float32, x.device)
+    grads = [None if g is None else g.contiguous() for g in (gd, gc)]
+    dx = torch.empty_like(x)
+    err = getattr(build.library(), fn)(
+        x.data_ptr(), *(0 if g is None else g.data_ptr() for g in grads), dx.data_ptr(), *dims,
+        float(scale), int(x.dtype == torch.bfloat16), build.stream_handle(x))
+    build.check(name, err)
+    build.launch_counts[name] += 1
+    return dx
+
+
+def soft_argmin_confidence_backward(logits: torch.Tensor, gd, gc, scale: float = 1.0):
+    """The backward of :func:`soft_argmin_confidence`: CUDA tensors go
+    through ``hst_soft_argmin_backward`` (``csrc/soft_argmin.cu``), CPU
+    tensors through :func:`soft_argmin_confidence_backward_plain`."""
+    if logits.device.type == "cpu":
+        return soft_argmin_confidence_backward_plain(logits, gd, gc, scale)
+    _check_logits(logits)
+    b, h, w, d = logits.shape
+    return _soft_argmin_backward_launch(SOFT_ARGMIN_BWD, "hst_soft_argmin_backward", logits,
+                                        gd, gc, scale, (b, h, w), b * h * w, d)
+
+
+class _SoftArgmin(torch.autograd.Function):
+    """(disp, conf) = ``forward_fn(x, scale)``, differentiated by
+    ``backward_fn(x, gd, gc, scale)`` (a cotangent not given is None)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, forward_fn, backward_fn):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x)
+        ctx.scale, ctx.backward_fn = scale, backward_fn
+        return forward_fn(x, scale)
+
+    @staticmethod
+    def backward(ctx, gd, gc):
+        (x,) = ctx.saved_tensors
+        dx = None if gd is None and gc is None else ctx.backward_fn(x, gd, gc, ctx.scale)
+        return dx, None, None, None
+
+
 def soft_argmin_confidence(logits: torch.Tensor, scale: float = 1.0):
-    """Fused soft-argmin disparity x ``scale`` and peak-probability confidence.
+    """Fused soft-argmin disparity x ``scale`` and peak-probability
+    confidence, differentiable in the logits
+    (:func:`soft_argmin_confidence_backward`).
 
     CUDA tensors go through ``csrc/soft_argmin.cu`` (its D = 24 bf16 kernel
     where :func:`uses_vector_kernel`, else its generic kernel); CPU tensors
     through :func:`soft_argmin_confidence_plain`.
     """
+    return _SoftArgmin.apply(logits, scale, _soft_argmin_forward,
+                             soft_argmin_confidence_backward)
+
+
+def _soft_argmin_forward(logits: torch.Tensor, scale: float):
     if logits.device.type == "cpu":
         return soft_argmin_confidence_plain(logits, scale)
     _check_logits(logits)
@@ -214,14 +422,44 @@ def soft_argmin_cost_plain(cost: torch.Tensor, scale: float = 1.0):
     return soft_argmin_confidence_plain(-cost.movedim(1, -1), scale)
 
 
+def soft_argmin_cost_backward_plain(cost: torch.Tensor, gd, gc, scale: float = 1.0):
+    """The gradient of :func:`soft_argmin_cost_plain`'s (disp, conf) with
+    respect to the cost [B,D,H,W]: :func:`soft_argmin_confidence_backward_plain`'s
+    formula on ``logits = -cost``, negated, rounded once to the cost's dtype."""
+    _check_cost(cost, _PLAIN_DTYPES)
+    for g in (gd, gc):
+        _check_cotangent(SOFT_ARGMIN_COST_BWD, g, cost.shape[:1] + cost.shape[2:])
+    dt = torch.promote_types(cost.dtype, torch.float32)
+    dx = _softmax_vjp(-cost.to(dt).movedim(1, -1), gd, gc, scale)
+    return (-dx).movedim(-1, 1).to(cost.dtype)
+
+
+def soft_argmin_cost_backward(cost: torch.Tensor, gd, gc, scale: float = 1.0):
+    """The backward of :func:`soft_argmin_cost`: CUDA tensors go through
+    ``hst_soft_argmin_dlead_backward`` (``csrc/soft_argmin.cu``), which reads
+    and writes the cost's D planes where they lie; CPU tensors through
+    :func:`soft_argmin_cost_backward_plain`."""
+    if cost.device.type == "cpu":
+        return soft_argmin_cost_backward_plain(cost, gd, gc, scale)
+    _check_cost(cost)
+    b, d, h, w = cost.shape
+    return _soft_argmin_backward_launch(SOFT_ARGMIN_COST_BWD, "hst_soft_argmin_dlead_backward",
+                                        cost, gd, gc, scale, (b, h, w), b, d, h * w)
+
+
 def soft_argmin_cost(cost: torch.Tensor, scale: float = 1.0):
     """Fused soft-argmin disparity x ``scale`` and peak-probability
-    confidence of a D-leading cost [B,D,H,W] (lower is better).
+    confidence of a D-leading cost [B,D,H,W] (lower is better),
+    differentiable in the cost (:func:`soft_argmin_cost_backward`).
 
     CUDA tensors go through ``csrc/soft_argmin.cu``'s D-leading kernel,
     which reads the cost where it lies (it must be contiguous); CPU
     tensors through :func:`soft_argmin_cost_plain`.
     """
+    return _SoftArgmin.apply(cost, scale, _soft_argmin_cost_forward, soft_argmin_cost_backward)
+
+
+def _soft_argmin_cost_forward(cost: torch.Tensor, scale: float):
     if cost.device.type == "cpu":
         return soft_argmin_cost_plain(cost, scale)
     _check_cost(cost)

@@ -35,8 +35,19 @@ them.
     preprocessing (as ``scripts/accuracy_stats.py`` evaluates CLASSIC):
     the same keys as ``flagship_outputs.npz``.
 
+  * ``flagship_train_step.npz`` and ``classic_train_step.npz``: one
+    training step of the JAX package on the CPU under the same ``XLA_FLAGS``,
+    from ``flagship_params.npz`` (YUV input) and ``classic_params.npz`` (RGB
+    input), at full width on the batch of :func:`train_step_batch` (4 crops
+    of 128x256): ``left_u8``, ``right_u8``, ``disparity``, then for each
+    precision ``f32`` (``compute_dtype=float32``) and ``bf16``: ``<p>_loss``,
+    ``<p>_epe``, ``<p>_grad_norm`` and every parameter's gradient
+    ``<p>_grad/<flax path>`` (float32), as ``jax.value_and_grad`` of
+    ``multiscale_loss`` gives them.
+
 The flagship's files are written by ``python tests/test_torch_reference.py
 --write``, CLASSIC's by ``python tests/test_torch_classic_reference.py
+--write``, the training steps by ``python tests/test_torch_train_reference.py
 --write``; the same files' tests check on every run that they are still
 what the checkpoints and the JAX package give.
 """
@@ -74,6 +85,48 @@ CLASSIC_HELDOUT_EPE_PX = 0.9374
 CLASSIC_HELDOUT_EPE_CI95_PX = 0.0775
 
 
+# The training step's batch: the first of BatchIterator over these scenes.
+TRAIN_STEP_NPZ = {"fast": REF_DIR / "flagship_train_step.npz",
+                  "classic": REF_DIR / "classic_train_step.npz"}
+TRAIN_STEP_SCENES = dict(size=4, seed=0, height=256, width=512)
+TRAIN_STEP_BATCH = dict(batch_size=4, crop_hw=(128, 256), seed=0)
+# One float32 step at full width against the stored one: the loss within
+# 1e-5 relative, the gradients' global norm within TRAIN_F32_NORM_RTOL, each gradient within 1e-3
+# relative L2.  Not 1e-4 (which the small configs meet, tests/test_torch_training.py):
+# a LeakyReLU input within float32 error of zero takes the other branch in
+# another float32 run, and one such element of the 524 288 at the tower's
+# 1/4 resolution moves the gradients of the blocks below it by about 1e-3
+# relative (measured on the CPU: the port's float32 gradients of
+# FeatureTower_0/ConvBlock_0-1 lie 2.5e-4 to 7.7e-4 from a float64 run,
+# JAX's 2e-5; every other tensor within 1e-5 of float64).
+# CLASSIC's global norm is held at its gradients' 1e-3: its float32 forward
+# is already 2.3e-3 px off JAX's (ROADMAP C5), and the norm moved 1.1e-5 to
+# 6.7e-5 from JAX's with the CPU's thread count.
+TRAIN_F32_RTOL = 1e-5
+TRAIN_F32_NORM_RTOL = {"fast": 1e-5, "classic": 1e-3}
+TRAIN_F32_GRAD_RTOL = 1e-3
+# bf16: over all the gradients together, the port's bf16 gradient is no
+# farther (relative L2) from JAX's bf16 one than JAX's bf16 is from JAX's
+# float32 one.  Per tensor the two bf16 errors are of one size but
+# independent (PyTorch's fused backward kernels round once where XLA
+# without excess precision rounds after every operation), so per tensor the
+# check only catches a missing or wrong gradient: each gradient that JAX's
+# bf16 resolves (within BF16_RESOLVED of its float32 one) lies within
+# BF16_TENSOR_RTOL of JAX's float32 gradient.  (Most conv biases' bf16
+# gradients, sums over every pixel that cancel, are 15-100 % off float32 in
+# JAX's own step; they count in the global bound only.)  The bf16 loss lies
+# at most BF16_LOSS_FACTOR times as far from JAX's float32 loss as JAX's
+# bf16 loss does.
+BF16_RESOLVED = 0.1
+BF16_TENSOR_RTOL = 0.5
+BF16_LOSS_FACTOR = 4.0
+# A gradient that cancels to zero in exact arithmetic (a conv bias under a
+# GroupNorm of one channel a group; the last cost conv's bias, which the
+# softmax ignores) is float32 noise on both sides: it is held within this
+# share of the global gradient norm instead.
+ZERO_GRAD_SHARE = 1e-6
+
+
 def heldout_dataset():
     """The 120 held-out procedural scenes at 256x512."""
     from ..data.loader import SyntheticStereoDataset
@@ -105,3 +158,70 @@ def load_outputs(path: Path = OUTPUTS_NPZ) -> dict:
     for the int8 ones, :data:`CLASSIC_OUTPUTS_NPZ` for CLASSIC's)."""
     with np.load(path) as data:
         return {k: data[k] for k in data.files}
+
+
+def train_step_batch():
+    """(left uint8 [4,128,256,3], right, disparity float32 [4,128,256]): the
+    batch of the stored training steps, made with the port's numpy code."""
+    from ..data.loader import BatchIterator, SyntheticStereoDataset
+
+    return next(iter(BatchIterator(SyntheticStereoDataset(**TRAIN_STEP_SCENES),
+                                   **TRAIN_STEP_BATCH)))
+
+
+def load_train_step(model: str = "fast") -> dict:
+    """The stored training step of ``model`` (``"fast"``, ``"classic"``):
+    the batch's arrays, and per precision (``"f32"``, ``"bf16"``) a dict of
+    ``loss``, ``epe``, ``grad_norm`` and ``grads`` ({flax path: array})."""
+    raw = load_outputs(TRAIN_STEP_NPZ[model])
+    out = {k: raw[k] for k in ("left_u8", "right_u8", "disparity", "color_space")}
+    for p in ("f32", "bf16"):
+        out[p] = {k: float(raw[f"{p}_{k}"]) for k in ("loss", "epe", "grad_norm")}
+        out[p]["grads"] = {k[len(p) + 6:]: raw[k] for k in raw if k.startswith(f"{p}_grad/")}
+    return out
+
+
+def _norm(a) -> float:
+    return float(np.linalg.norm(np.asarray(a, np.float64)))
+
+
+def bf16_grad_check(got: dict, want16: dict, want32: dict) -> dict:
+    """The port's bf16 gradients ``got`` against JAX's bf16 (``want16``) and
+    float32 (``want32``) ones, {flax path: array} each: ``ratio``, the
+    port's distance from JAX's bf16 over JAX's bf16 distance from float32,
+    over all gradients together (must be <= 1); ``share``, the share of
+    tensors that meet that bound alone; ``worst``, (path, relative L2
+    distance from JAX's float32) of the farthest gradient among those JAX's
+    bf16 resolves (must be <= :data:`BF16_TENSOR_RTOL`); ``ok``."""
+    num = den = 0.0
+    within, worst = 0, ("", 0.0)
+    for path, w32 in want32.items():
+        p, w16 = np.asarray(got[path], np.float64), np.asarray(want16[path], np.float64)
+        d_port, d_jax = _norm(p - w16), _norm(w16 - w32)
+        num, den = num + d_port ** 2, den + d_jax ** 2
+        within += d_port <= d_jax
+        if d_jax <= BF16_RESOLVED * _norm(w32):
+            r = _norm(p - w32) / _norm(w32)
+            if r > worst[1]:
+                worst = (path, r)
+    ratio = float(np.sqrt(num / den))
+    return {"ratio": ratio, "share": within / len(want32), "worst": worst,
+            "ok": ratio <= 1.0 and worst[1] <= BF16_TENSOR_RTOL}
+
+
+def grad_mismatches(got: dict, want: dict, rtol: float) -> list:
+    """[(path, relative L2 error)] of the gradients in ``got`` ({flax path:
+    array}) farther than ``rtol`` from ``want``'s; one whose reference is
+    below :data:`ZERO_GRAD_SHARE` of the global norm is held within that
+    share of it (its error is reported as a share of the global norm)."""
+    g = np.sqrt(sum(float(np.sum(np.square(v, dtype=np.float64))) for v in want.values()))
+    bad = []
+    for path, w in want.items():
+        diff = float(np.linalg.norm(np.asarray(got[path], np.float64) - w))
+        ref = float(np.linalg.norm(np.asarray(w, np.float64)))
+        if ref <= ZERO_GRAD_SHARE * g:
+            if diff > ZERO_GRAD_SHARE * g:
+                bad.append((path, diff / g))
+        elif diff > rtol * ref:
+            bad.append((path, diff / ref))
+    return bad

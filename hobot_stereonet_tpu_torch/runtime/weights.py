@@ -125,6 +125,62 @@ def random_flax_params(cfg: StereoNetConfig = StereoNetConfig(), seed: int = 0,
     return {"params": tree}
 
 
+# flax's lecun_normal: a normal truncated at two standard deviations, scaled
+# so that the truncated distribution has variance 1 / fan_in (the constant is
+# the standard deviation of a unit normal truncated to [-2, 2]).
+TRUNCATED_NORMAL_STD = 0.87962566103423978
+
+
+def init_params(cfg: StereoNetConfig = StereoNetConfig(), model="fast",
+                generator: "torch.Generator | None" = None) -> Dict[str, torch.Tensor]:
+    """Fresh float32 weights of the network ``model`` (``"fast"``,
+    ``"classic"`` or a built network) as a ``state_dict`` on the CPU, drawn
+    from ``generator`` in flax's default distributions: conv kernels
+    ``lecun_normal`` (a normal truncated at +-2 sigma, sigma =
+    ``1/sqrt(fan_in)/0.87962566``, fan_in = Cin x kernel taps), conv biases
+    zero, GroupNorm scales one and biases zero.  The JAX package draws the
+    same distributions from ``jax.random``; the values differ.
+    """
+    from ..models import model_name
+
+    name = model if isinstance(model, str) else model_name(model)
+    state: Dict[str, torch.Tensor] = {}
+    for key, shape in _expected_state(cfg, name).items():
+        if key.endswith(".bias"):
+            t = torch.zeros(shape)
+        elif len(shape) in (4, 5):                      # conv O, I, *taps
+            fan_in = int(np.prod(shape[1:]))
+            t = torch.empty(shape)
+            torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+            t *= float(1.0 / np.sqrt(fan_in) / TRUNCATED_NORMAL_STD)
+        else:                                           # GroupNorm scale
+            t = torch.ones(shape)
+        state[key] = t
+    return state
+
+
+def to_flax_params(state: Mapping[str, torch.Tensor]) -> dict:
+    """A network's ``state_dict`` -> the flax variables dict ``{"params":
+    tree}`` of numpy float32 arrays, the inverse of :func:`flax_to_state_dict`:
+    conv ``weight`` OIHW -> ``kernel`` HWIO (OIDHW -> DHWIO), GroupNorm
+    ``weight`` -> ``scale``."""
+    tree: dict = {}
+    for key, value in state.items():
+        *mods, leaf = key.split(".")
+        arr = value.detach().to("cpu", torch.float32).numpy()
+        if leaf == "weight" and arr.ndim in (4, 5):
+            arr, leaf = arr.transpose(*range(2, arr.ndim), 1, 0), "kernel"
+        elif leaf == "weight":
+            leaf = "scale"
+        elif leaf != "bias":
+            raise KeyError(f"unexpected parameter {key}")
+        node = tree
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf] = np.ascontiguousarray(arr)
+    return {"params": tree}
+
+
 # A fixed member timestamp, so that the same arrays give the same file.
 _NPZ_DATE = (1980, 1, 1, 0, 0, 0)
 

@@ -18,7 +18,10 @@ orders (the tensor cores in theirs), so a Gram value can land one step
 away, which the division by bf16(sqrt C) and the second rounding carry
 to up to two steps of the output; a sum near zero can differ in its
 rounding far beyond its own size.  Soft-argmin, channel-last or over a
-D-leading cost, at f32 rounding (rtol 1e-5).  The CLASSIC StereoNet in
+D-leading cost, at f32 rounding (rtol 1e-5).  The backward kernels: in f32
+within 1e-5 of the largest magnitude, in bf16 at least 99.9 % within one
+bf16 step of the plain version and all within two (their sums run in
+another order).  The CLASSIC StereoNet in
 float32 on the card against the CPU: disparity 1e-3 px, confidence 1e-4
 (the flagship's card-against-CPU bounds in chip_smoke.py; TF32 off).
 """
@@ -29,12 +32,19 @@ import torch
 
 from hobot_stereonet_tpu_torch.ops.kernels import build
 from hobot_stereonet_tpu_torch.ops.kernels.correlation import (
+    bf16_ulp_distance,
     correlation_gram_band,
     correlation_volume,
+    correlation_volume_backward,
+    correlation_volume_backward_plain,
     correlation_volume_plain,
     soft_argmin_confidence,
+    soft_argmin_confidence_backward,
+    soft_argmin_confidence_backward_plain,
     soft_argmin_confidence_plain,
     soft_argmin_cost,
+    soft_argmin_cost_backward,
+    soft_argmin_cost_backward_plain,
     soft_argmin_cost_plain,
     uses_vector_kernel,
 )
@@ -204,6 +214,117 @@ def test_classic_stereonet_f32_on_the_card_equals_the_cpu(device):
     assert torch.isfinite(gd).all()
     torch.testing.assert_close(gd, cd, rtol=0, atol=1e-3)
     torch.testing.assert_close(gc, cc, rtol=0, atol=1e-4)
+
+
+def _bwd_check(got, want):
+    """float32: within 1e-5 of the largest magnitude; bf16: >= 99.9 % of the
+    values within one bf16 step of the plain version's, all within two."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if got.dtype == torch.float32:
+        err = (got - want).abs().max().item()
+        assert err <= 1e-5 * want.abs().max().item(), err
+    else:
+        ulps = bf16_ulp_distance(got, want)
+        assert (ulps <= 1).float().mean().item() >= 0.999 and ulps.max().item() <= 2
+
+
+@pytest.mark.parametrize("b,h,w,c,d,dtype", [
+    (2, 5, 40, 32, 24, torch.bfloat16),
+    (1, 3, 17, 16, 24, torch.bfloat16),     # W < D: rows left of every candidate
+    (8, 16, 32, 32, 24, torch.bfloat16),    # the training shape
+    (8, 90, 160, 32, 24, torch.bfloat16),   # the serving shape
+    (2, 5, 40, 32, 24, torch.float32),
+    (1, 4, 70, 64, 5, torch.float32),       # two column tiles, another D and C
+])
+def test_correlation_backward_kernel(device, b, h, w, c, d, dtype):
+    g = torch.Generator(device="cpu").manual_seed(b * h + w)
+    fl, fr = (torch.randn((b, h, w, c), generator=g).to(device, dtype) for _ in range(2))
+    dcorr = torch.randn((b, h, w, d), generator=g).to(device, dtype)
+    n0 = build.launch_counts["correlation_bwd"]
+    got = correlation_volume_backward(dcorr, fl, fr)
+    want = correlation_volume_backward_plain(dcorr, fl, fr)
+    torch.cuda.synchronize()
+    assert build.launch_counts["correlation_bwd"] == n0 + 1
+    for a, p in zip(got, want):
+        _bwd_check(a, p)
+
+
+@pytest.mark.parametrize("with_gc", [False, True])
+@pytest.mark.parametrize("d,dtype", [(24, torch.bfloat16), (24, torch.float32),
+                                     (4, torch.bfloat16), (33, torch.float32)])
+def test_soft_argmin_backward_kernels(device, d, dtype, with_gc):
+    """Both layouts, with ties in the max and with and without a confidence
+    cotangent."""
+    g = torch.Generator(device="cpu").manual_seed(d)
+    b, h, w = 3, 9, 13
+    logits = 3.0 * torch.randn((b, h, w, d), generator=g)
+    logits[0, :, :, 1] = logits[0, :, :, d - 1] = logits[0].amax(-1) + 1.0
+    logits = logits.to(device, dtype)
+    gd = torch.randn((b, h, w), generator=g).to(device)
+    gc = torch.randn((b, h, w), generator=g).to(device) if with_gc else None
+    cost = -logits.permute(0, 3, 1, 2).contiguous()
+    n0 = dict(build.launch_counts)
+    got = soft_argmin_confidence_backward(logits, gd, gc, 8.0)
+    got_cost = soft_argmin_cost_backward(cost, gd, gc, 8.0)
+    torch.cuda.synchronize()
+    for name in ("soft_argmin_bwd", "soft_argmin_cost_bwd"):
+        assert build.launch_counts[name] == n0.get(name, 0) + 1
+    _bwd_check(got, soft_argmin_confidence_backward_plain(logits, gd, gc, 8.0))
+    _bwd_check(got_cost, soft_argmin_cost_backward_plain(cost, gd, gc, 8.0))
+
+
+@pytest.mark.parametrize("model", ["fast", "classic"])
+def test_training_gradients_on_the_card_reach_every_parameter_and_equal_the_cpu(device, model):
+    """``loss.backward()`` through the network on the card reaches every
+    parameter through the kernels' backward and equals the CPU's gradients
+    (float32, TF32 off; ``reference.grad_mismatches`` at 1e-3: a LeakyReLU
+    input near zero may take the other branch on the other device)."""
+    from hobot_stereonet_tpu_torch import reference
+    from hobot_stereonet_tpu_torch.config import StereoNetConfig
+    from hobot_stereonet_tpu_torch.models import build_model
+    from hobot_stereonet_tpu_torch.runtime.training import multiscale_loss
+    from hobot_stereonet_tpu_torch.runtime.weights import from_flax_params, random_flax_params
+
+    cfg = StereoNetConfig(compute_dtype=torch.float32, num_feature_res_blocks=2,
+                          num_aggregation_layers=2)
+    params = from_flax_params(random_flax_params(cfg, seed=3, model=model), cfg, model)
+    rng = np.random.default_rng(9)
+    left = torch.from_numpy(rng.uniform(-1, 1, (2, 64, 128, 3)).astype(np.float32))
+    right = torch.roll(left, -5, dims=2)
+    gt = torch.from_numpy(rng.uniform(1, 40, (2, 64, 128)).astype(np.float32))
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        grads = []
+        for dev in (device, torch.device("cpu")):
+            net = build_model(model, cfg, dev)
+            net.load_state_dict(params)
+            loss, _ = multiscale_loss(net(left.to(dev), right.to(dev)), gt.to(dev))
+            loss.backward()
+            grads.append({k: p.grad for k, p in net.named_parameters()})
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    card, cpu = grads
+    assert all(g is not None for g in card.values())
+    tower = [k for k in card if k.startswith("FeatureTower_0")]
+    assert tower and all(card[k].abs().max().item() > 0 for k in tower if "bias" not in k)
+    bad = reference.grad_mismatches({k: v.cpu().numpy() for k, v in card.items()},
+                                    {k: v.numpy() for k, v in cpu.items()}, 1e-3)
+    assert not bad, bad
+
+
+def test_serving_forward_launches_no_backward(device):
+    from hobot_stereonet_tpu_torch.config import StereoNetConfig
+    from hobot_stereonet_tpu_torch.models import FastStereoNet
+
+    cfg = StereoNetConfig(num_feature_res_blocks=1, num_aggregation_layers=1)
+    net = FastStereoNet(cfg, device=device).eval()
+    x = torch.rand((2, 64, 128, 3), device=device)
+    build.reset_launch_counts()
+    with torch.inference_mode():
+        net(x, x)
+    torch.cuda.synchronize()
+    assert dict(build.launch_counts) == {"correlation": 1, "soft_argmin": 1}
 
 
 def _small_engine(device, **engine):

@@ -15,7 +15,8 @@ print(len(names), bad)
 assert len(names) >= 20, names
 new = {"data.synthetic", "data.loader", "data.stream", "utils.profiling",
        "runtime.benchmark", "runtime.evaluate", "runtime.golden", "ops.quant",
-       "ops.kernels.int8_conv", "ops.kernels.numerics"}
+       "ops.kernels.int8_conv", "ops.kernels.numerics", "runtime.training",
+       "runtime.train_loop", "runtime.checkpoint", "cli"}
 missing = {pkg.__name__ + "." + n for n in new} - set(names)
 assert not missing, missing
 assert not bad, bad
