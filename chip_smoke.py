@@ -5,16 +5,28 @@
 
 Phases, each printed with its elapsed seconds:
 
-  1. device: the card's name and power limit; TF32 off for the comparisons;
+  1. device: the card's name and power limit.  TF32 stays at PyTorch's
+     defaults: the package turns it off wherever a network computes in
+     float32 on the card (``utils/precision.py``), which phases 6 and 12
+     check from inside the forward and the backward;
   2. build: the CUDA kernels, from ``hobot_stereonet_tpu_torch/csrc`` (one
      nvcc per source, all at once); each kernel's registers and spills
      (``-Xptxas -v``) and its instruction mix from ``cuobjdump -sass``: the
      bf16 correlation must hold HMMA (tensor-core) instructions, both int8
      conv kernels IGMMA (warpgroup int8 MMA, wgmma) and the Cin % 8 == 0 one
-     UTMALDG (TMA loads), and the one-pass soft-argmin 128-bit loads;
+     UTMALDG (TMA loads), the one-pass soft-argmin 128-bit loads, the
+     ingest 128-bit stores and the GroupNorm's statistics UBLKCP (1-D bulk
+     copies);
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the main path's shapes with a batch of 8 and of 32 (the flagship's
-     largest bucket), and their times beside their bounds;
+     largest bucket), and their times beside their bounds; then the
+     GroupNorm kernel against its plain version, bit for bit, at every
+     (channels, spatial size) the two networks run at 720p (found by hooks
+     on a forward of each), at batches 1, 8 and 32: its time beside its
+     byte bound, its chain floor (4 cycles an input position at the card's
+     largest clock) and ATen's ``F.group_norm`` on the same input with the
+     float32 casts the port used before (the library call, never called by
+     the port);
   4. reference: the flagship network in float32 on the card (through the
      kernels) against the same weights on the CPU (plain versions), on a
      small input;
@@ -31,7 +43,8 @@ Phases, each printed with its elapsed seconds:
      the two 256x512 held-out scenes in float32 (max |error| <= 1e-3 px
      against the stored JAX output) and in bf16, and on the 720p frame in
      bf16 (median, p99.99 and max |error|, pixels over 1 px, held to the
-     bounds the CPU tests hold the port to);
+     bounds the CPU tests hold the port to); a float32 ``StereoEngine``
+     forward reads TF32 off inside its network, the bf16 one on;
   7. held-out accuracy: ``evaluate_dataset`` over the 120 held-out scenes
      in bf16 on the card; the mean EPE must lie in 0.8689 +- 0.0754 px
      (``accuracy_stats.json``), printed with D1 and the paired per-scene
@@ -90,7 +103,8 @@ Phases, each printed with its elapsed seconds:
      bounds; one ``make_train_step`` of each network from its committed
      weights on the stored batch (``reference/*_train_step.npz``) against
      JAX's loss, gradient norm and gradients, in float32 and bf16
-     (``reference.TRAIN_F32_*``, ``reference.bf16_grad_check``);
+     (``reference.TRAIN_F32_*``, ``reference.bf16_grad_check``), with TF32
+     read off in the float32 step's forward and backward;
      ``train_synthetic`` of the flagship from ``init_params``: 30 steps,
      batch 8, crops of 128x256, bf16, YUV (the mean loss of the last 5 steps
      below the first 5's), with the forward and backward kernels launched,
@@ -98,12 +112,16 @@ Phases, each printed with its elapsed seconds:
      saved checkpoint served by ``StereoEngine`` on 8 frames at 720p; 10
      steps of CLASSIC (RGB), which launch the D-leading backward.
 
-Phases 7, 8, 10, 11 and 12 reset the kernels' launch counts just before they drive
-their path and fail if a kernel of it was not launched.  The held-out
-scenes are rendered on a host thread from the start, beside phases 2-6.
+Phases 5, 7, 8, 10, 11 and 12 reset the kernels' launch counts just before they
+drive their path and fail if a kernel of it was not launched (the GroupNorm
+on every network's path, as many times a forward as the network has
+GroupNorms).  The held-out scenes are rendered on a host thread from the
+start, beside phases 2-6.
 
 Before the last line it prints one JSON object with each kernel's launches,
-error, times and bound at each batch; the last line is
+error, times and bound at each batch (a GroupNorm row's launches: the calls
+at its very shape in the serving runs of phases 5 and 11, counted by hooks
+on the engines' networks and held to the wrapper's count); the last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero; a watchdog
 dumps every thread's stack and exits if the run hangs.  Imports torch,
 numpy and the port only.
@@ -111,6 +129,7 @@ numpy and the port only.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import faulthandler
 import json
@@ -149,9 +168,13 @@ INGEST_MODES = (("yuv", False, False), ("rgb", True, False), ("rgb+quantize", Tr
 # int8 held-out EPE against the stored JAX int8 EPEs of the same scheme:
 # the paired mean difference, in px.
 INT8_PAIRED_MEAN_PX = 0.01
-BF16_PATH = ("nv12_ingest", "correlation", "soft_argmin")   # the kernels of the bf16 path
-TRAIN_PATH = ("correlation", "correlation_bwd", "soft_argmin", "soft_argmin_bwd")
-CLASSIC_TRAIN_PATH = ("soft_argmin_cost", "soft_argmin_cost_bwd")
+# the kernels of the bf16 path
+BF16_PATH = ("nv12_ingest", "group_norm", "correlation", "soft_argmin")
+TRAIN_PATH = ("group_norm", "correlation", "correlation_bwd", "soft_argmin", "soft_argmin_bwd")
+CLASSIC_PATH = ("nv12_ingest", "group_norm", "soft_argmin_cost")
+CLASSIC_TRAIN_PATH = ("group_norm", "soft_argmin_cost", "soft_argmin_cost_bwd")
+GN_BATCHES = (1, 8, 32)         # batches of the GroupNorm phase
+GN_CYCLES_PER_POSITION = 4      # the statistics chain: one dependent float32 add a position
 # Backward kernels: (B, h, w) at the serving shapes and the training one
 # (crops of 128x256 at 1/8).
 BWD_SHAPES = ((8, H // 8, W // 8), (32, H // 8, W // 8), (8, 16, 32))
@@ -377,6 +400,111 @@ def kernel_phase(b, rng, flush, dev, h, w, c, d, scale, card) -> list:
     return rows
 
 
+def groupnorm_census(dev) -> dict:
+    """The GroupNorm inputs of both networks at 720p: {(samples a frame, C,
+    spatial): {network: GroupNorms of that shape a forward}}, from hooks on
+    one bf16 forward of each (seeded random weights) at batch 1."""
+    import torch
+
+    from hobot_stereonet_tpu_torch.config import Config, StereoNetConfig
+    from hobot_stereonet_tpu_torch.models import build_model
+    from hobot_stereonet_tpu_torch.models.layers import GroupNorm
+
+    census: dict = {}
+    flagship = ROOT / "checkpoints" / "flagship" / "config.json"
+    for name, mcfg in (("fast", Config.from_json(str(flagship)).model),
+                       ("classic", StereoNetConfig())):
+        torch.manual_seed(0)
+        net = build_model(name, mcfg, dev).eval()
+        seen = []
+        hooks = [m.register_forward_pre_hook(lambda mod, args: seen.append(args[0]))
+                 for m in net.modules() if isinstance(m, GroupNorm)]
+        frames = torch.rand((1, H, W, 3), device=dev) * 2 - 1
+        with torch.inference_mode():
+            net(frames, torch.roll(frames, -3, 2))
+        for hk in hooks:
+            hk.remove()
+        for x in seen:
+            fmt = torch.channels_last_3d if x.dim() == 5 else torch.channels_last
+            if x.dtype != torch.bfloat16 or not x.is_contiguous(memory_format=fmt):
+                raise AssertionError(f"{name}: a GroupNorm input {tuple(x.shape)} {x.dtype} "
+                                     f"is not channels-last bf16")
+            key = (x.shape[0], x.shape[1], tuple(x.shape[2:]))
+            census.setdefault(key, {}).setdefault(name, 0)
+            census[key][name] += 1
+        del net, seen, frames
+    torch.cuda.empty_cache()
+    return census
+
+
+def group_norm_phase(dev, census, flush, card, clock_ghz) -> list:
+    """The GroupNorm kernel against its plain version, bit for bit (output,
+    mean and rstd), at every shape of ``census`` and batch of
+    :data:`GN_BATCHES`; its time beside its byte bound (input read once,
+    output written once), the 6-byte bound of its two passes, its chain
+    floor and ATen's ``F.group_norm`` with the float32 casts."""
+    import torch
+    import torch.nn.functional as F
+
+    from hobot_stereonet_tpu_torch.models.layers import GN_EPS, num_groups
+    from hobot_stereonet_tpu_torch.ops.kernels import group_norm as kg
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    rows = []
+    for (mult, c, spatial), per_net in sorted(census.items()):
+        p = 1
+        for d in spatial:
+            p *= d
+        g = num_groups(c)
+        w = torch.rand(c, device=dev, generator=gen) + 0.5
+        bias = torch.rand(c, device=dev, generator=gen) - 0.5
+        fmt = torch.channels_last_3d if len(spatial) == 3 else torch.channels_last
+        for b in GN_BATCHES:
+            n = mult * b
+            x = (torch.randn((n, c) + spatial, device=dev, generator=gen) * 3 + 5).bfloat16()
+            x = x.contiguous(memory_format=fmt)
+            got, mean, rstd = kg._group_norm_cuda(x, g, w, bias, GN_EPS)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            want, w_mean, w_rstd = kg.group_norm_plain(x, g, w, bias, GN_EPS)
+            end.record()
+            torch.cuda.synchronize()
+            plain_ms = start.elapsed_time(end)
+            equal = float((got == want).float().mean())
+            if not (torch.equal(got, want) and torch.equal(mean, w_mean)
+                    and torch.equal(rstd, w_rstd)):
+                raise AssertionError(f"group_norm {n}x{c}x{spatial} differs from its plain "
+                                     f"version: bit-equal {equal}, statistics equal "
+                                     f"{torch.equal(mean, w_mean)} / {torch.equal(rstd, w_rstd)}")
+            err = (got.float() - want.float()).abs().max().item()
+            del want, w_mean, w_rstd
+            elems = x.numel()
+            iters = 10 if elems > 2e8 else 30
+            ms = median_ms(lambda: kg.group_norm(x, g, w, bias, GN_EPS), flush, iters=iters)
+            lib_ms = median_ms(lambda: F.group_norm(x.float(), g, w, bias, GN_EPS).bfloat16(),
+                               flush, iters=iters)
+            bound_6b_ms = 6.0 * elems / HBM_BYTES_PER_S * 1e3
+            chain_floor_ms = GN_CYCLES_PER_POSITION * p / (clock_ghz * 1e9) * 1e3
+            rows.append(dict(
+                name=kg.NAME, shape=f"{n}x{c}x{'x'.join(map(str, spatial))}", batch=b,
+                key=(n, c, spatial), per_forward=per_net, route="cuda",
+                source="hobot_stereonet_tpu_torch/csrc/group_norm.cu",
+                replaces="hand-written without a Pallas counterpart (flax GroupNorm, "
+                         "hobot_stereonet_tpu/models/layers.py, left to XLA)",
+                tolerance="exact (output, mean, rstd)", max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound=bound(4.0 * elems, 8.0 * elems), library_ms=lib_ms))
+            r = rows[-1]
+            phase(f"kernel group_norm [{r['shape']}] bf16 (per forward {per_net}) B={b}: exact; "
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, bound {r['bound'][0]:.4f} ms "
+                  f"({r['bound'][1]}, {100 * r['bound'][0] / ms:.0f}% of it), 6-byte bound "
+                  f"{bound_6b_ms:.4f} ms, chain floor {chain_floor_ms:.4f} ms, ATen "
+                  f"F.group_norm with the float32 casts {lib_ms:.4f} ms (kernel / ATen "
+                  f"{ms / lib_ms:.3f}); {card}")
+            del x, got, mean, rstd
+        torch.cuda.empty_cache()
+    return rows
+
+
 def int8_conv_shapes(cfg, b: int) -> list:
     """The flagship's distinct conv shapes at 720p and ``b`` frames:
     (label, convs of that shape, N, Cin, Cout, kernel, stride, H, W, input
@@ -522,6 +650,40 @@ def int8_host_time(dev, cfg, card) -> float:
           f"{times['wrapper']:.2f} us a call over {calls} calls, of which its C entry alone "
           f"(tensor map, launch) {times['C entry']:.2f} us; {card}")
     return times["wrapper"]
+
+
+def tf32_flags() -> tuple:
+    import torch
+
+    return torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+
+
+def record_tf32(seen: dict, key):
+    """A module hook that records the TF32 flags under ``key`` (once) and
+    changes nothing (it returns None)."""
+    def hook(*args):
+        seen.setdefault(key, tf32_flags())
+    return hook
+
+
+@contextlib.contextmanager
+def group_norm_shapes(model, counts: dict):
+    """While open, count ``model``'s GroupNorm calls in ``counts`` by input
+    shape: {(N, C, spatial): calls}."""
+    from hobot_stereonet_tpu_torch.models.layers import GroupNorm
+
+    def hook(mod, args):
+        x = args[0]
+        key = (x.shape[0], x.shape[1], tuple(x.shape[2:]))
+        counts[key] = counts.get(key, 0) + 1
+
+    hooks = [m.register_forward_pre_hook(hook) for m in model.modules()
+             if isinstance(m, GroupNorm)]
+    try:
+        yield counts
+    finally:
+        for hk in hooks:
+            hk.remove()
 
 
 def px_stats(got, want) -> dict:
@@ -833,6 +995,7 @@ def classic_phase(ctx: dict) -> tuple:
     if not (card_cpu[0] <= 1e-3 and card_cpu[1] <= 1e-4 and jax32["median"] <= 1e-4
             and jax32["max"] <= 3e-3 and jax32_conf <= 1e-4):
         raise AssertionError("CLASSIC float32 on the card disagrees")
+
     net16 = net(torch.bfloat16, dev)
     d16, c16 = run_scenes(net16, dev)
     st = px_stats(d16, stored["bf16_disparity"])
@@ -851,7 +1014,7 @@ def classic_phase(ctx: dict) -> tuple:
 
     # Held-out accuracy in bf16, paired against the stored JAX EPEs.
     t = time.monotonic()
-    res, counts = on_path(["soft_argmin_cost"], lambda: evaluate_dataset(
+    res, counts = on_path(CLASSIC_PATH[1:], lambda: evaluate_dataset(
         "classic", params, heldout, Config(), device=dev))
     jax_epe = stored["heldout_epe"]
     delta = np.asarray(res.per_frame_epe) - jax_epe
@@ -874,8 +1037,8 @@ def classic_phase(ctx: dict) -> tuple:
     eng = StereoEngine(ccfg, params=params, emit_confidence=True, model="classic")
     eng.warmup(buckets=[N_FRAMES])
     feed = rng.integers(0, 256, (N_FRAMES, 3 * H * W), dtype=np.uint8)
-    results, launches = on_path(("nv12_ingest", "soft_argmin_cost"),
-                                lambda: serve_frames(eng, feed))
+    with group_norm_shapes(eng.model, ctx["gn_shapes"]):
+        results, launches = on_path(CLASSIC_PATH, lambda: serve_frames(eng, feed))
     if eng.metrics.dispatch_batch.n != 1 or launches["soft_argmin_cost"] != N_FRAMES // 8:
         raise AssertionError(f"classic engine: {eng.metrics.dispatch_batch.summary()}, "
                              f"launches {launches}")
@@ -910,7 +1073,7 @@ def classic_phase(ctx: dict) -> tuple:
         t = time.monotonic()
         retries = torch.cuda.memory_stats(dev).get("num_alloc_retries", 0)
         torch.cuda.reset_peak_memory_stats(dev)
-        out, counts = on_path(("nv12_ingest", "soft_argmin_cost"), lambda: measure_engine_fps(
+        out, counts = on_path(CLASSIC_PATH, lambda: measure_engine_fps(
             model="classic", params=params, model_cfg=mcfg, preprocess_cfg=rgb, batch=b,
             n_batches=nb, stage_timing=stage_timing, device_microbatch=8, inflight=inflight,
             ring_size=2, height=H, width=W))
@@ -935,7 +1098,7 @@ def classic_phase(ctx: dict) -> tuple:
         for name, ms, calls in top:
             phase(f"profile:   {ms:9.3f} ms  {calls:5d} calls  {name[:110]}")
     conv_probe(dev, eng.model, card)
-    return rows, launches["soft_argmin_cost"]
+    return rows, launches
 
 
 def check_backward(name: str, got, want) -> str:
@@ -1022,9 +1185,11 @@ def backward_kernel_rows(rng, flush, dev, c, d, scale, card) -> list:
     return rows
 
 
-def train_step_parity(model: str, dtype, dev) -> str:
+def train_step_parity(model: str, dtype, dev) -> tuple:
     """One ``make_train_step`` of ``model`` from its committed weights on the
-    stored batch, against JAX's stored step; returns a summary."""
+    stored batch, against JAX's stored step (raises beyond the bounds);
+    returns (a summary, the TF32 flags its first conv read in the forward
+    and in the backward)."""
     import numpy as np
     import torch
 
@@ -1046,8 +1211,14 @@ def train_step_parity(model: str, dtype, dev) -> str:
     state = training.TrainState(params, opt.init(params), 0)
     left, right = (to_model_input(torch.from_numpy(stored[k]).to(dev), str(stored["color_space"]))
                    for k in ("left_u8", "right_u8"))
+    flags = {}
+    conv = net.FeatureTower_0.ConvBlock_0.Conv_0
+    hooks = (conv.register_forward_pre_hook(record_tf32(flags, "forward")),
+             conv.register_full_backward_pre_hook(record_tf32(flags, "backward")))
     _, m = training.make_train_step(net, opt, cfg.max_disparity)(
         state, left, right, torch.from_numpy(stored["disparity"]).to(dev))
+    for hk in hooks:
+        hk.remove()
     loss, norm = float(m["loss"]), float(m["grad_norm"])
     flat = {"/".join(k): v for k, v in _flatten(_unwrap(to_flax_params(
         {k: p.grad for k, p in params.items()})))}
@@ -1075,7 +1246,7 @@ def train_step_parity(model: str, dtype, dev) -> str:
                   f"JAX's f32 (limit {reference.BF16_TENSOR_RTOL})")
     if not (ok and np.isfinite(loss)):
         raise AssertionError(f"{model} {dtype} training step on the card vs JAX: {detail}")
-    return detail
+    return detail, flags
 
 
 def training_phase(ctx: dict) -> tuple:
@@ -1104,12 +1275,17 @@ def training_phase(ctx: dict) -> tuple:
     phase(f"training: backward kernels checked and timed ({time.monotonic() - t:.1f} s)")
 
     t = time.monotonic()
+    outside = tf32_flags()
     for model in ("fast", "classic"):
         for dtype in (torch.float32, torch.bfloat16):
             build.reset_launch_counts()
-            detail = train_step_parity(model, dtype, dev)
+            detail, flags = train_step_parity(model, dtype, dev)
             phase(f"training parity: {model} {str(dtype).removeprefix('torch.')} one step on the "
-                  f"card vs JAX's stored step: {detail}; launches {dict(build.launch_counts)}")
+                  f"card vs JAX's stored step: {detail}; TF32 (cuDNN, matmul) in the forward "
+                  f"and backward {flags}; launches {dict(build.launch_counts)}")
+            want = (False, False) if dtype == torch.float32 else outside
+            if flags != {"forward": want, "backward": want}:
+                raise AssertionError(f"{model} {dtype} train step: TF32 {flags}, expected {want}")
     phase(f"training parity: done ({time.monotonic() - t:.1f} s)")
 
     # The flagship's loop from fresh weights; CLASSIC's reuses the rendered scenes.
@@ -1131,8 +1307,10 @@ def training_phase(ctx: dict) -> tuple:
           f"({time.monotonic() - t:.1f} s)")
     if not (last < first and all(np.isfinite(losses))):
         raise AssertionError(f"the flagship's loss did not fall: {losses}")
-    if any(counts[n] != TRAIN_STEPS for n in TRAIN_PATH):
-        raise AssertionError(f"expected each of {TRAIN_PATH} once a step: {counts}")
+    want = {n: TRAIN_STEPS * (ctx["gn_per_forward"]["fast"] if n == "group_norm" else 1)
+            for n in TRAIN_PATH}
+    if any(counts[n] != k for n, k in want.items()):
+        raise AssertionError(f"expected {want} launches in {TRAIN_STEPS} steps: {counts}")
     launches = {(n, None): counts[n] for n in ("correlation_bwd", "soft_argmin_bwd")}
 
     # The device step alone: one batch on the card, 10 steps, then one profiled.
@@ -1148,11 +1326,16 @@ def training_phase(ctx: dict) -> tuple:
     for _ in range(3):
         state, m = step(state, left, right, gt)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(10):
-        state, m = step(state, left, right, gt)
-    float(m["loss"])
-    device_rate = 10 / (time.perf_counter() - t0)
+
+    def steps_per_s() -> float:
+        nonlocal state
+        t0 = time.perf_counter()
+        for _ in range(10):
+            state, m = step(state, left, right, gt)
+        float(m["loss"])
+        return 10 / (time.perf_counter() - t0)
+
+    device_rate = steps_per_s()
     with device_trace(str(ctx["log"] / "train_step")) as prof:
         state, m = step(state, left, right, gt)
         float(m["loss"])
@@ -1293,10 +1476,13 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=10, check=True).stdout.strip()
     card = smi.splitlines()[0]
-    phase(f"device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    clock_ghz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=10, check=True).stdout.split()[0]) / 1e3
+    phase(f"device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}; largest SM "
+          f"clock {clock_ghz:.3f} GHz; TF32 at PyTorch's defaults (cuDNN "
+          f"{torch.backends.cudnn.allow_tf32}, matmul {torch.backends.cuda.matmul.allow_tf32})")
     print(card, flush=True)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda:0")
 
     # 2. build ------------------------------------------------------------------
@@ -1315,11 +1501,15 @@ def main() -> int:
     vec = sass("soft_argmin_vector_kernel", "LDG.128")
     igmma = min(sass(k, "IGMMA") for k in ("int8_conv_wgmma_kernel", "int8_conv_dense_kernel"))
     tma = sass("int8_conv_wgmma_kernel", "UTMALDG")
-    if hmma <= 0 or vec <= 0 or igmma <= 0 or tma <= 0:
+    ingest_st = sass("nv12_ingest_kernel", "STG.128")
+    gn_bulk = sass("group_norm_stats_kernel", "UBLKCP")
+    if min(hmma, vec, igmma, tma, ingest_st, gn_bulk) <= 0:
         raise AssertionError(f"expected HMMA in correlation_bf16_kernel ({hmma}), 128-bit "
                              f"loads in soft_argmin_vector_kernel ({vec}), IGMMA (warpgroup "
-                             f"int8 MMA) in both int8 conv kernels ({igmma}) and UTMALDG (TMA "
-                             f"loads) in int8_conv_wgmma_kernel ({tma})")
+                             f"int8 MMA) in both int8 conv kernels ({igmma}), UTMALDG (TMA "
+                             f"loads) in int8_conv_wgmma_kernel ({tma}), 128-bit stores in "
+                             f"nv12_ingest_kernel ({ingest_st}) and UBLKCP (bulk copies) in "
+                             f"group_norm_stats_kernel ({gn_bulk})")
 
     # 3. kernels vs plain, at each batch -----------------------------------------
     rng = np.random.default_rng(0)
@@ -1336,6 +1526,15 @@ def main() -> int:
     for b in BATCHES:
         rows += int8_kernel_phase(b, rng, flush, dev, cfg, card)
     int8_host_time(dev, cfg, card)
+    t = time.monotonic()
+    census = groupnorm_census(dev)
+    gn_per_forward = {net: sum(v.get(net, 0) for v in census.values())
+                      for net in ("fast", "classic")}
+    phase(f"groupnorm: the GroupNorm inputs at {W}x{H}, batch 1 (samples, channels, spatial): "
+          f"GroupNorms a forward {census}; in all {gn_per_forward}")
+    gn_rows = group_norm_phase(dev, census, flush, card, clock_ghz)
+    rows += gn_rows
+    phase(f"groupnorm: {len(gn_rows)} shapes and batches exact ({time.monotonic() - t:.1f} s)")
     del flush
     # 4. reference: float32 network on the card vs the CPU ----------------------
     params = random_flax_params(cfg.model, seed=0)
@@ -1371,15 +1570,17 @@ def main() -> int:
           f"in {time.monotonic() - t:.1f} s")
     fl_len = 3 * H * W
     feed = rng.integers(0, 256, (N_FRAMES, fl_len), dtype=np.uint8)
+    gn_shapes: dict = {}          # GroupNorm calls by shape on the serving paths
     build.reset_launch_counts()
     t = time.monotonic()
-    accepted = sum(eng.feed(Frame(time.monotonic(), feed[i], H, 2 * W, index=i))
-                   for i in range(N_FRAMES))
-    eng.start(warmup=False)
-    eng.drain(timeout=240.0)
-    wall = time.monotonic() - t
-    results = list(eng.results(timeout=1.0))
-    eng.stop()
+    with group_norm_shapes(eng.model, gn_shapes):
+        accepted = sum(eng.feed(Frame(time.monotonic(), feed[i], H, 2 * W, index=i))
+                       for i in range(N_FRAMES))
+        eng.start(warmup=False)
+        eng.drain(timeout=240.0)
+        wall = time.monotonic() - t
+        results = list(eng.results(timeout=1.0))
+        eng.stop()
     launches = dict(build.launch_counts)
     torch.cuda.synchronize()
 
@@ -1402,6 +1603,10 @@ def main() -> int:
     missing = [n for n in BF16_PATH if launches.get(n, 0) <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}; {launches}")
+    if (launches["group_norm"] != gn_per_forward["fast"]
+            or sum(gn_shapes.values()) != launches["group_norm"]):
+        raise AssertionError(f"{launches['group_norm']} GroupNorm launches for one batch, "
+                             f"expected {gn_per_forward['fast']}; by shape {gn_shapes}")
     batches = eng.metrics.dispatch_batch.summary()
     if eng.metrics.dispatch_batch.n != 1:
         raise AssertionError(f"expected one dispatch of {N_FRAMES} frames, got {batches}")
@@ -1468,13 +1673,31 @@ def main() -> int:
     phase(f"trained: bf16 network on the card vs JAX on the 720p frame: {st} "
           f"({time.monotonic() - t:.1f} s)")
 
+    # TF32 as the network reads it: off in a float32 engine's forward, left
+    # at PyTorch's default in the bf16 one's.
+    tf32 = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        e = StereoEngine(dataclasses.replace(cfg, preprocess=yuv, model=dataclasses.replace(
+            cfg.model, compute_dtype=dtype)), params=trained)
+        hook = e.model.FeatureTower_0.ConvBlock_0.Conv_0.register_forward_pre_hook(
+            record_tf32(tf32, dtype))
+        with torch.inference_mode():
+            e.pipeline(frame)
+        hook.remove()
+        del e
+    outside = tf32_flags()
+    phase(f"trained: TF32 (cuDNN, matmul) inside the network of a StereoEngine: float32 "
+          f"{tf32[torch.float32]}, bf16 {tf32[torch.bfloat16]}; outside {outside}")
+    if tf32[torch.float32] != (False, False) or tf32[torch.bfloat16] != outside:
+        raise AssertionError(f"TF32 inside the engines' networks: {tf32}, outside {outside}")
+
     # 7. held-out accuracy ------------------------------------------------------
     t = time.monotonic()
     rendered.result()
     phase(f"accuracy: {len(heldout)} held-out scenes rendered on a host thread")
     eval_cfg = dataclasses.replace(cfg, preprocess=yuv)
     res, eval_launches = on_path(
-        ["correlation", "soft_argmin"],
+        BF16_PATH[1:],
         lambda: evaluate_dataset(None, trained, heldout, eval_cfg, device=dev))
     jax_epe = stored["heldout_epe"]
     delta = np.asarray(res.per_frame_epe) - jax_epe
@@ -1574,30 +1797,40 @@ def main() -> int:
         dev=dev, cfg=cfg, yuv=yuv, trained=trained, heldout=heldout, eval_cfg=eval_cfg,
         ring=ring, slots=slots, ecfg=ecfg, bf16_engine=eng, rng=rng, card=card, log=log))
     path_launches[("nv12_ingest", "yuv")] = launches["nv12_ingest"]
+    path_launches[("group_norm", "fast")] = launches["group_norm"]
     for name in ("correlation", "soft_argmin"):
         path_launches[(name, None)] = launches[name]
 
     # 11. the CLASSIC StereoNet -------------------------------------------------
-    classic_rows, path_launches[("soft_argmin_cost", None)] = classic_phase(dict(
-        dev=dev, card=card, rng=rng, heldout=heldout, log=log))
+    classic_rows, classic_launches = classic_phase(dict(
+        dev=dev, card=card, rng=rng, heldout=heldout, log=log, gn_shapes=gn_shapes))
+    path_launches[("soft_argmin_cost", None)] = classic_launches["soft_argmin_cost"]
+    path_launches[("group_norm", "classic")] = classic_launches["group_norm"]
+    if (classic_launches["group_norm"] != gn_per_forward["classic"] * N_FRAMES // 8
+            or sum(gn_shapes.values()) != launches["group_norm"] + classic_launches["group_norm"]):
+        raise AssertionError(f"CLASSIC engine: {classic_launches['group_norm']} GroupNorm "
+                             f"launches for {N_FRAMES // 8} chunks of 8; by shape {gn_shapes}")
+    phase(f"groupnorm: launches by shape on the serving paths of phases 5 and 11: {gn_shapes}")
     rows += classic_rows
 
     # 12. training ------------------------------------------------------------------
     train_rows, train_launches = training_phase(dict(dev=dev, card=card, rng=rng, cfg=cfg,
-                                                     log=log))
+                                                     log=log, gn_per_forward=gn_per_forward))
     rows += train_rows
     path_launches.update(train_launches)
 
     def row_launches(r):
+        if "key" in r:                            # a GroupNorm shape: its launches at it
+            return gn_shapes.get(r["key"], 0)
         return path_launches[(r["name"], r.get("mode") or r.get("scheme"))]
 
     print(json.dumps({"kernels": [dict(
-        name=r["name"], **{k: r[k] for k in ("mode", "shape", "scheme", "convs") if k in r},
+        name=r["name"], **{k: r[k] for k in ("mode", "shape", "scheme", "convs", "per_forward")
+                           if k in r},
         route=r["route"], source=r["source"], replaces=r["replaces"],
         batch=r["batch"], launches=row_launches(r), max_abs_err=r["max_abs_err"], ms=r["ms"],
         plain_ms=r["plain_ms"], bound_ms=r["bound"][0], bound_by=r["bound"][1],
-        library_ms=r["library_ms"], **({"cudnn_bf16_ms": r["cudnn_bf16_ms"]}
-                                       if "cudnn_bf16_ms" in r else {}))
+        library_ms=r["library_ms"], **{k: r[k] for k in ("cudnn_bf16_ms",) if k in r})
         for r in rows]}), flush=True)
     phase(f"done in {time.monotonic() - T0:.1f} s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -27,13 +27,23 @@
 // (7.4 us in RGB); its arithmetic, at most 8 operations an output value,
 // is far below the card's rate.
 //
-// Design: one thread per pair of horizontally adjacent output pixels, which
-// share one chroma sample.  The thread reads the two Y bytes and the UV pair
-// of each eye (neighbouring threads read neighbouring bytes) and writes its
-// 12 outputs contiguously (24 bytes as six bf16x2 stores, or 48 bytes as
-// three 16-byte stores), so a warp writes 768 or 1536 contiguous bytes.
-// Every input byte is read once and every output byte written once; no
-// shared memory is needed.
+// Design (a block per tile of TW pixels of row_pairs() row pairs, both eyes):
+//   * the two luma rows and their shared chroma row, of both eyes, are read
+//     once each with 16-byte loads (each chroma sample is read once, not
+//     once per luma row), the next row pair's while this one is converted,
+//     and staged in shared memory;
+//   * each thread converts one pixel pair of one eye in both rows (four
+//     pixels sharing one chroma sample) and writes its 12 values per row
+//     pair into the output tile in shared memory, in the interleaved
+//     [pixel][Yl Ul Vl Yr Ur Vr] order;
+//   * the tile's two output rows, each one contiguous range of memory, go
+//     out with consecutive lanes on consecutive 16-byte words (512 bytes a
+//     warp instruction), as streaming stores (__stcs): at B >= 8 the output
+//     (22.1 MB a frame in RGB) overflows the 50 MB L2 and is read by the
+//     next kernel from device memory anyway.
+// Widths whose rows are not 16-byte aligned (W % 16 != 0) take the same
+// tiles with byte loads and element stores; the last tile of a row may be
+// narrower than TW.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -66,59 +76,105 @@ __device__ __forceinline__ void yuv_to_rgb(float y, float u, float v, float* rgb
   rgb[2] = fminf(fmaxf(b, 0.0f), 255.0f);
 }
 
-template <bool RGB, bool QUANT>
-__global__ void nv12_ingest_kernel(const uint8_t* __restrict__ src, void* __restrict__ dst,
-                                   int H, int W) {
-  const int pairs_per_row = W / 2;
-  const long long pairs = static_cast<long long>(H) * pairs_per_row;
-  const long long p = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (p >= pairs) return;
-  const int b = blockIdx.y;
-  const int y = static_cast<int>(p / pairs_per_row);
-  const int xp = static_cast<int>(p - static_cast<long long>(y) * pairs_per_row);
+constexpr int TW = 256;                 // pixels of one eye a tile
+constexpr int THREADS = TW;             // one thread per (eye, pixel pair)
+// Row pairs a block, the next one's loads in flight while one converts;
+// an RGB pair writes twice a YUV pair's bytes, so it takes half as many.
+template <bool RGB> __host__ __device__ constexpr int row_pairs() { return RGB ? 2 : 4; }
 
-  const long long fw = 2LL * W;                       // frame width in bytes
+template <bool RGB> struct OutType { using type = __nv_bfloat16; };
+template <> struct OutType<true> { using type = float; };
+
+__device__ __forceinline__ void store(float v, float* out) { *out = v; }
+__device__ __forceinline__ void store(float v, __nv_bfloat16* out) {
+  *out = __float2bfloat16_rn(v);
+}
+
+template <bool RGB, bool QUANT, bool VEC>
+__global__ void __launch_bounds__(THREADS)
+nv12_ingest_kernel(const uint8_t* __restrict__ src, void* __restrict__ dst, int H, int W) {
+  using Out = typename OutType<RGB>::type;
+  __shared__ __align__(16) uint8_t in[3][2][TW];        // [Y row 0, Y row 1, UV][eye][byte]
+  __shared__ __align__(16) unsigned char out_raw[2 * TW * 6 * sizeof(Out)];
+  Out* out = reinterpret_cast<Out*>(out_raw);           // [row][pixel * 6 + channel]
+  const int x0 = blockIdx.x * TW, b = blockIdx.z;
+  const int tw = min(TW, W - x0);                       // even: W is
+  constexpr int ROW_PAIRS = row_pairs<RGB>();
+  const int y2_end = min(H / 2, static_cast<int>(blockIdx.y + 1) * ROW_PAIRS);
+  const long long fw = 2LL * W;                         // frame width in bytes
   const uint8_t* frame = src + static_cast<long long>(b) * 3LL * H * W;
-  const uint8_t* yrow = frame + y * fw;
-  const uint8_t* uvrow = frame + H * fw + (y >> 1) * fw;
-  const int x = 2 * xp;
+  // Input row r of row pair y2: luma rows 2 y2 and 2 y2 + 1, then their chroma row.
+  auto row = [&](int y2, int r) { return frame + (r < 2 ? 2LL * y2 + r : H + y2) * fw; };
+  // VEC: thread i < 6 * per holds the 16-byte word (r, e, k) of the next row pair.
+  const int per = VEC ? tw / 16 : 1;
+  const int i = threadIdx.x, r = i / (2 * per), e = (i / per) & 1, k = i % per;
+  auto word = [&](int y2) {
+    return __ldcs(reinterpret_cast<const uint4*>(row(y2, r) + e * W + x0) + k);
+  };
+  uint4 next = make_uint4(0, 0, 0, 0);
+  if (VEC && i < 6 * per) next = word(blockIdx.y * ROW_PAIRS);
 
-  // v[pixel][channel]: [Yl Ul Vl Yr Ur Vr] as bytes, for pixels x and x+1.
-  float v[2][6];
-  for (int i = 0; i < 2; ++i) {
-    v[i][0] = yrow[x + i];
-    v[i][1] = uvrow[x];
-    v[i][2] = uvrow[x + 1];
-    v[i][3] = yrow[W + x + i];
-    v[i][4] = uvrow[W + x];
-    v[i][5] = uvrow[W + x + 1];
-  }
-  const long long o = ((static_cast<long long>(b) * H + y) * W + x) * 6;
-  if (RGB) {
-    float out[12];
-    for (int i = 0; i < 2; ++i) {
-      yuv_to_rgb(v[i][0], v[i][1], v[i][2], out + 6 * i);
-      yuv_to_rgb(v[i][3], v[i][4], v[i][5], out + 6 * i + 3);
+  for (int y2 = blockIdx.y * ROW_PAIRS; y2 < y2_end; ++y2) {
+    if (VEC) {                                          // tw % 16 == 0, rows 16-byte aligned
+      if (i < 6 * per) {
+        reinterpret_cast<uint4*>(in[r][e])[k] = next;
+        if (y2 + 1 < y2_end) next = word(y2 + 1);       // in flight while this pair converts
+      }
+    } else {
+      for (int j = threadIdx.x; j < 6 * tw; j += THREADS) {
+        const int rj = j / (2 * tw), ej = (j / tw) & 1, kj = j % tw;
+        in[rj][ej][kj] = row(y2, rj)[ej * W + x0 + kj];
+      }
     }
-    float4* d = reinterpret_cast<float4*>(static_cast<float*>(dst) + o);
-    for (int i = 0; i < 3; ++i)
-      d[i] = make_float4(finish<QUANT>(out[4 * i]), finish<QUANT>(out[4 * i + 1]),
-                         finish<QUANT>(out[4 * i + 2]), finish<QUANT>(out[4 * i + 3]));
-  } else {
-    const float* f = &v[0][0];
-    __nv_bfloat162* d = reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(dst) + o);
-    for (int i = 0; i < 6; ++i)
-      d[i] = __floats2bfloat162_rn(finish<QUANT>(f[2 * i]), finish<QUANT>(f[2 * i + 1]));
+    __syncthreads();
+
+    const int eye = threadIdx.x / (TW / 2), x = 2 * (threadIdx.x % (TW / 2));
+    if (x < tw) {
+      const float u = in[2][eye][x], v = in[2][eye][x + 1];
+      for (int rr = 0; rr < 2; ++rr) {
+        for (int j = 0; j < 2; ++j) {
+          float c[3] = {static_cast<float>(in[rr][eye][x + j]), u, v};
+          if (RGB) yuv_to_rgb(c[0], u, v, c);
+          Out* o = out + (rr * TW + x + j) * 6 + 3 * eye;
+          for (int ch = 0; ch < 3; ++ch) store(finish<QUANT>(c[ch]), o + ch);
+        }
+      }
+    }
+    __syncthreads();
+
+    Out* d = static_cast<Out*>(dst) + ((static_cast<long long>(b) * H + 2 * y2) * W + x0) * 6;
+    const long long row_stride = 6LL * W;               // elements between the two rows
+    const int n = tw * 6;                               // elements of one output row
+    if (VEC) {
+      const int words = n * static_cast<int>(sizeof(Out)) / 16;
+      for (int j = threadIdx.x; j < 2 * words; j += THREADS) {
+        const int rr = j / words, kk = j - rr * words;
+        __stcs(reinterpret_cast<uint4*>(d + rr * row_stride) + kk,
+               reinterpret_cast<const uint4*>(out + rr * TW * 6)[kk]);
+      }
+    } else {
+      for (int j = threadIdx.x; j < 2 * n; j += THREADS) {
+        const int rr = j / n, kk = j - rr * n;
+        d[rr * row_stride + kk] = out[rr * TW * 6 + kk];
+      }
+    }
+    __syncthreads();                                    // the tiles are free for the next pair
   }
 }
 
 template <bool RGB, bool QUANT>
 void launch(const void* src, void* dst, int B, int H, int W, cudaStream_t stream) {
-  const int threads = 256;
-  const long long pairs = static_cast<long long>(H) * (W / 2);
-  dim3 grid(static_cast<unsigned>((pairs + threads - 1) / threads), static_cast<unsigned>(B));
-  nv12_ingest_kernel<RGB, QUANT><<<grid, threads, 0, stream>>>(
-      static_cast<const uint8_t*>(src), dst, H, W);
+  dim3 grid(static_cast<unsigned>((W + TW - 1) / TW),
+            static_cast<unsigned>((H / 2 + row_pairs<RGB>() - 1) / row_pairs<RGB>()),
+            static_cast<unsigned>(B));
+  const bool vec = W % 16 == 0 && ((reinterpret_cast<uintptr_t>(src) |
+                                    reinterpret_cast<uintptr_t>(dst)) & 15) == 0;
+  if (vec)
+    nv12_ingest_kernel<RGB, QUANT, true><<<grid, THREADS, 0, stream>>>(
+        static_cast<const uint8_t*>(src), dst, H, W);
+  else
+    nv12_ingest_kernel<RGB, QUANT, false><<<grid, THREADS, 0, stream>>>(
+        static_cast<const uint8_t*>(src), dst, H, W);
 }
 
 }  // namespace

@@ -11,6 +11,9 @@ correlation volume (CUDA kernel), ``CorrelationAggregation2D``, the fused
 soft-argmin and confidence (CUDA kernel), then either the mask head and
 ``convex_upsample`` x8 (``upsample_mode="convex"``, the flagship) or the
 CLASSIC StereoNet's hierarchical refinement (``"refine"``).
+
+A network whose ``compute_dtype`` is float32 runs its forward on CUDA with
+TF32 off (``utils/precision.py``), as the reference's float32 computes.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from ..config import StereoNetConfig, resolve_device
 from ..ops.cost_volume import build_correlation_volume
 from ..ops.soft_argmin import soft_argmin_confidence
 from ..ops.upsample import convex_upsample
+from ..utils.precision import exact_float32
 from .layers import ConvBlock, ResBlock2D, SameConv2d, set_compute_dtype
 from .stereonet import (FeatureTower, _nchw, _nhwc, add_refinement_nets, channels_last, refine,
                         tower_features)
@@ -79,6 +83,10 @@ class FastStereoNet(nn.Module):
         """left, right [B,H,W,3] -> {"disparity" [B,H,W], "confidence"
         [B,H/k,W/k], "pyramid" [coarse x k, then the full-resolution one or
         each refinement stage]}, all float32."""
+        with exact_float32(self.cfg.compute_dtype, left.device):
+            return self._forward(left, right)
+
+    def _forward(self, left: torch.Tensor, right: torch.Tensor) -> Dict[str, Any]:
         cfg = self.cfg
         b = left.shape[0]
         k = cfg.cost_resolution_divisor

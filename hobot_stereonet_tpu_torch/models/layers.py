@@ -34,6 +34,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.kernels.group_norm import group_norm
 from ..ops.kernels.int8_conv import same_pads
 
 NEGATIVE_SLOPE = 0.2
@@ -99,18 +100,23 @@ class GroupNorm(nn.GroupNorm):
     """flax ``GroupNorm``: eps 1e-6, float32 statistics and parameters,
     over (C/G, *spatial) of NCHW or NCDHW input.
 
-    Its float32 statistics are not the reference's to the last bit, and no
-    formulation of them tried reproduces those (``tests/test_torch_reference.py``).
+    bf16 and float32 input go through :func:`~..ops.kernels.group_norm.group_norm`:
+    the CUDA kernel on the card, its plain version on the CPU.  Both compute
+    ATen's one-thread statistics of a channels-last input, in one order
+    whatever the thread count or the batch.  They are not the reference's
+    to the last bit, and no formulation of them tried reproduces those
+    (``tests/test_torch_reference.py``).  float64 input stays on
+    ``F.group_norm``.
     """
 
     def __init__(self, channels: int):
         super().__init__(num_groups(channels), channels, eps=GN_EPS)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = torch.promote_types(x.dtype, torch.float32)      # float64 stays float64
-        y = F.group_norm(x.to(dt), self.num_groups, self.weight.to(dt), self.bias.to(dt),
-                         self.eps)
-        return y.to(x.dtype)
+        if x.dtype == torch.float64:
+            return F.group_norm(x, self.num_groups, self.weight.double(), self.bias.double(),
+                                self.eps)
+        return group_norm(x, self.num_groups, self.weight.float(), self.bias.float(), self.eps)
 
 
 class ConvBlock(nn.Module):

@@ -21,6 +21,9 @@ Inputs and outputs keep ``FastStereoNet``'s layouts: [B,H,W,3] in;
 fine) out, all float32.  ``cfg.remat`` recomputes the feature tower in
 the backward pass instead of keeping its activations (``torch.utils.checkpoint``,
 as the reference's ``nn.remat(FeatureTower)``); it changes no result.
+
+A network whose ``compute_dtype`` is float32 runs its forward on CUDA with
+TF32 off (``utils/precision.py``), as the reference's float32 computes.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from ..config import StereoNetConfig, resolve_device
 from ..ops.cost_volume import build_cost_volume
 from ..ops.soft_argmin import soft_argmin_cost
 from ..ops.upsample import downsample_avg, upsample2x_bilinear
+from ..utils.precision import exact_float32
 from .layers import ConvBlock, ConvBlock3D, ResBlock2D, SameConv2d, SameConv3d, set_compute_dtype
 
 # Dilations of a RefinementNet's residual blocks, repeated past six blocks.
@@ -206,6 +210,10 @@ class StereoNet(nn.Module):
         """left, right [B,H,W,3] -> {"disparity" [B,H,W], "confidence"
         [B,H/k,W/k], "pyramid" [coarse x k, then each refinement stage]},
         all float32."""
+        with exact_float32(self.cfg.compute_dtype, left.device):
+            return self._forward(left, right)
+
+    def _forward(self, left: torch.Tensor, right: torch.Tensor) -> Dict[str, Any]:
         cfg = self.cfg
         b = left.shape[0]
         feats = tower_features(self, left, right)

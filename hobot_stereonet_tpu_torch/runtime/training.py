@@ -31,6 +31,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..utils.precision import exact_float32
+
 
 def smooth_l1(x: torch.Tensor, beta: float = 1.0) -> torch.Tensor:
     ax = x.abs()
@@ -178,14 +180,17 @@ def make_train_step(model: nn.Module, optimizer: Optimizer,
     """``step(state, left, right, gt, valid=None) -> (state, metrics)``:
     forward, :func:`multiscale_loss`, backward and one optimizer update.
     ``metrics`` holds 0-d tensors on the device: ``loss``, ``epe`` and
-    ``grad_norm`` (before clipping).  Raises if a parameter got no gradient."""
+    ``grad_norm`` (before clipping).  A float32 model on CUDA runs its
+    forward and backward without TF32 (:mod:`..utils.precision`).  Raises
+    if a parameter got no gradient."""
 
     def step(state: TrainState, left, right, gt, valid=None):
         for p in state.params.values():
             p.grad = None
-        out = model(left, right)
-        loss, metrics = multiscale_loss(out, gt, valid, max_disparity)
-        loss.backward()
+        with exact_float32(model.cfg.compute_dtype, left.device):    # the backward too
+            out = model(left, right)
+            loss, metrics = multiscale_loss(out, gt, valid, max_disparity)
+            loss.backward()
         grads = {k: p.grad for k, p in state.params.items()}
         missing = [k for k, g in grads.items() if g is None]
         if missing:

@@ -324,7 +324,11 @@ def test_serving_forward_launches_no_backward(device):
     with torch.inference_mode():
         net(x, x)
     torch.cuda.synchronize()
-    assert dict(build.launch_counts) == {"correlation": 1, "soft_argmin": 1}
+    from hobot_stereonet_tpu_torch.models.layers import GroupNorm
+
+    groupnorms = sum(isinstance(m, GroupNorm) for m in net.modules())
+    assert dict(build.launch_counts) == {"correlation": 1, "soft_argmin": 1,
+                                         "group_norm": groupnorms}
 
 
 def _small_engine(device, **engine):
@@ -606,3 +610,96 @@ def test_int8_conv_kernel_reads_nan_as_minus_inf(device, cin, k, stride, x_dtype
     torch.cuda.synchronize()
     assert plain.isnan().any() and not got.isnan().any()
     assert torch.equal(got, want), int((got != want).sum())
+
+
+# ---------------------------------------------------------------------------
+# GroupNorm (ops/kernels/group_norm.py, csrc/group_norm.cu): bit for bit
+# ---------------------------------------------------------------------------
+
+GN_CASES = [  # (N, C, spatial, dtype): the networks' channel counts, 2-D and
+    # 3-D, odd spatial sizes (rows not 16-byte aligned), a size below 1024
+    (3, 32, (90, 160), torch.bfloat16),
+    (2, 64, (90, 160), torch.bfloat16),
+    (5, 12, (45, 80), torch.bfloat16),
+    (3, 12, (31, 33), torch.bfloat16),
+    (3, 16, (33, 41), torch.bfloat16),
+    (2, 32, (4, 18, 34), torch.bfloat16),
+    (1, 8, (5, 7), torch.bfloat16),
+    (2, 32, (30, 40), torch.float32),
+    (3, 12, (31, 33), torch.float32),
+]
+
+
+def _gn_case(n, c, spatial, dtype, seed=0):
+    from hobot_stereonet_tpu_torch.models.layers import num_groups
+
+    rng = np.random.default_rng(seed)
+    fmt = torch.channels_last_3d if len(spatial) == 3 else torch.channels_last
+    x = torch.from_numpy((3 * rng.standard_normal((n, c) + spatial) + 5).astype(np.float32))
+    w = torch.from_numpy(rng.uniform(0.5, 1.5, c).astype(np.float32))
+    b = torch.from_numpy(rng.uniform(-0.5, 0.5, c).astype(np.float32))
+    return x.to(dtype).contiguous(memory_format=fmt), num_groups(c), w, b
+
+
+@pytest.mark.parametrize("n,c,spatial,dtype", GN_CASES)
+def test_group_norm_kernel_equals_plain(device, n, c, spatial, dtype):
+    from hobot_stereonet_tpu_torch.ops.kernels.group_norm import group_norm, group_norm_plain
+
+    x, g, w, b = _gn_case(n, c, spatial, dtype)
+    n0 = build.launch_counts["group_norm"]
+    with torch.inference_mode():
+        got = group_norm(x.to(device), g, w.to(device), b.to(device), 1e-6)
+    torch.cuda.synchronize()
+    assert build.launch_counts["group_norm"] == n0 + 1
+    want, _, _ = group_norm_plain(x, g, w, b, 1e-6)
+    assert got.dtype == dtype and got.stride() == x.stride()
+    assert torch.equal(got.cpu(), want), float((got.cpu() != want).float().mean())
+
+
+def test_group_norm_kernel_statistics_and_views(device):
+    """mean and rstd bit for bit; a sample at an offset that is not 16-byte
+    aligned (C = 12 bf16, odd size) gives the same bits as alone."""
+    from hobot_stereonet_tpu_torch.ops.kernels import group_norm as kg
+
+    x, g, w, b = _gn_case(4, 12, (31, 33), torch.bfloat16, seed=1)
+    xd, wd, bd = x.to(device), w.to(device), b.to(device)
+    y, mean, rstd = kg._group_norm_cuda(xd, g, wd, bd, 1e-6)
+    tail, _, _ = kg._group_norm_cuda(xd[1:], g, wd, bd, 1e-6)
+    torch.cuda.synchronize()
+    _, m_plain, r_plain = kg.group_norm_plain(x, g, w, b, 1e-6)
+    assert torch.equal(mean.cpu(), m_plain) and torch.equal(rstd.cpu(), r_plain)
+    assert xd[1:].data_ptr() % 16 != 0 and torch.equal(tail, y[1:])
+
+
+def test_group_norm_kernel_refuses_what_it_does_not_take(device):
+    from hobot_stereonet_tpu_torch.ops.kernels.group_norm import group_norm
+
+    x, g, w, b = _gn_case(2, 32, (8, 8), torch.bfloat16)
+    x, w, b = x.to(device), w.to(device), b.to(device)
+    with pytest.raises(ValueError, match="channels_last"):
+        group_norm(x.contiguous(), g, w, b, 1e-6)
+    with pytest.raises(TypeError):
+        group_norm(x.half(), g, w, b, 1e-6)
+    with pytest.raises(ValueError, match="divide"):
+        group_norm(x, 3, w, b, 1e-6)
+
+
+def test_group_norm_gradients_on_the_card(device):
+    """The module's backward on the card against the CPU's (ATen's
+    backward on both, fed the forward's identical statistics; its sums run
+    in other orders on the two devices)."""
+    from hobot_stereonet_tpu_torch.models.layers import GroupNorm
+
+    x, _, w, b = _gn_case(2, 32, (24, 40), torch.float32, seed=2)
+    dy = torch.from_numpy(np.random.default_rng(3).standard_normal(x.shape).astype(np.float32))
+    grads = []
+    for dev in (device, torch.device("cpu")):
+        gn = GroupNorm(32).to(dev)
+        with torch.no_grad():
+            gn.weight.copy_(w)
+            gn.bias.copy_(b)
+        xi = x.to(dev).requires_grad_(True)
+        gn(xi).backward(dy.to(dev).contiguous(memory_format=torch.channels_last))
+        grads.append([t.cpu() for t in (xi.grad, gn.weight.grad, gn.bias.grad)])
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * want.abs().max().item())
