@@ -15,18 +15,22 @@ Phases, each printed with its elapsed seconds:
      bf16 correlation must hold HMMA (tensor-core) instructions, both int8
      conv kernels IGMMA (warpgroup int8 MMA, wgmma) and the Cin % 8 == 0 one
      UTMALDG (TMA loads), the one-pass soft-argmin 128-bit loads, the
-     ingest 128-bit stores and the GroupNorm's statistics UBLKCP (1-D bulk
-     copies);
+     ingest 128-bit stores, the GroupNorm's scan SHFL (warp shuffles) and
+     its walk UBLKCP (bulk copies);
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the main path's shapes with a batch of 8 and of 32 (the flagship's
      largest bucket), and their times beside their bounds; then the
      GroupNorm kernel against its plain version, bit for bit, at every
      (channels, spatial size) the two networks run at 720p (found by hooks
-     on a forward of each), at batches 1, 8 and 32: its time beside its
-     byte bound, its chain floor (4 cycles an input position at the card's
-     largest clock) and ATen's ``F.group_norm`` on the same input with the
-     float32 casts the port used before (the library call, never called by
-     the port);
+     on a forward of each), at batches 1, 8 and 32 in bf16 and in
+     float32, through its plain entry and its fused one (conv bias,
+     skip and LeakyReLU; conv bias alone; the int8 blocks' form, skip and
+     no bias), the plain entry and the first fused form also in the mode
+     the launch does not choose (scan or walk in order, from N * C): each
+     time beside its byte bound, ATen's ``F.group_norm`` on
+     the same input with the float32 casts (the library call, never called
+     by the port) and the unfused sequence the blocks ran before (bias add,
+     the plain entry, residual add, LeakyReLU);
   4. reference: the flagship network in float32 on the card (through the
      kernels) against the same weights on the CPU (plain versions), on a
      small input;
@@ -55,9 +59,12 @@ Phases, each printed with its elapsed seconds:
      ``stage_timing``; ring-fed results against a synchronous pipeline call,
      ``device_microbatch=8`` against the whole batch of 32, and a frame in a
      batch of 1 against the same frame in the batch of 32;
-  9. profile: one steady ring-fed batch of 32 under ``device_trace``
-     (``torch.profiler``): the device-busy share of the traced window and
-     the ten largest device ops;
+  9. profile: one steady ring-fed batch of 1 and of 32 under
+     ``device_trace`` (``torch.profiler``): the device-busy share of the
+     traced window, the ten largest device ops, and the elementwise
+     launches that stood around each GroupNorm before its fusion (no
+     LeakyReLU ``where`` may run; phases 10 and 11 check their profiles
+     the same way);
  10. int8 and RGB (w8a8 serving, ``ops/quant.py``): the int8 conv kernel
      against its plain version (bit for bit) at each distinct conv shape of
      the flagship at 720p and at the tower's first conv with the float32
@@ -174,7 +181,6 @@ TRAIN_PATH = ("group_norm", "correlation", "correlation_bwd", "soft_argmin", "so
 CLASSIC_PATH = ("nv12_ingest", "group_norm", "soft_argmin_cost")
 CLASSIC_TRAIN_PATH = ("group_norm", "soft_argmin_cost", "soft_argmin_cost_bwd")
 GN_BATCHES = (1, 8, 32)         # batches of the GroupNorm phase
-GN_CYCLES_PER_POSITION = 4      # the statistics chain: one dependent float32 add a position
 # Backward kernels: (B, h, w) at the serving shapes and the training one
 # (crops of 128x256 at 1/8).
 BWD_SHAPES = ((8, H // 8, W // 8), (32, H // 8, W // 8), (8, 16, 32))
@@ -223,8 +229,8 @@ def bound(bytes_moved: float, flops: float, flops_per_s: float = F32_FLOPS):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-SASS_OPS = ("HMMA", "IMMA", "IGMMA", "UTMALDG", "UBLKCP", "LDSM", "LDGSTS", "LDG", "LDS", "STG", "STS",
-            "MUFU.EX2")
+SASS_OPS = ("HMMA", "IMMA", "IGMMA", "UTMALDG", "UBLKCP", "LDSM", "LDGSTS", "LDG", "LDS", "STG",
+            "STS", "MUFU.EX2", "SHFL")
 
 
 def kernel_report(lib: Path, log: str) -> dict:
@@ -258,13 +264,19 @@ def kernel_report(lib: Path, log: str) -> dict:
 
     def short(mangled: str) -> str:
         # Itanium mangling: a name is its length, then its characters.  An
-        # anonymous namespace adds a hashed prefix, so try every digit run.
+        # anonymous namespace adds a hashed prefix, so try every digit run;
+        # a run inside the hash can read as a longer name that also ends in
+        # "_kernel", so the shortest such name is the function's.
+        found = []
         for m in re.finditer(r"(?=(\d+))", mangled):
             start = m.start() + len(m.group(1))
             ident = mangled[start:start + int(m.group(1))]
             if ident.endswith("_kernel") and re.fullmatch(r"[A-Za-z_]\w*", ident):
-                return ident + template_args(mangled[start + len(ident):])
-        return mangled
+                found.append((len(ident), ident, start))
+        if not found:
+            return mangled
+        _, ident, start = min(found)
+        return ident + template_args(mangled[start + len(ident):])
 
     report: dict = {}
     name = None
@@ -437,12 +449,29 @@ def groupnorm_census(dev) -> dict:
     return census
 
 
-def group_norm_phase(dev, census, flush, card, clock_ghz) -> list:
+def _plain_by_chunks(fn, x, *rest, chunks: int = 4):
+    """``fn(x[i:j], *rest)`` over chunks of the batch on host threads (the
+    plain version is per sample), its tensor outputs concatenated."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    parts = [c for c in x.split(max(1, -(-x.shape[0] // chunks))) if c.shape[0]]
+    with ThreadPoolExecutor(max_workers=len(parts)) as pool:
+        outs = list(pool.map(lambda c: fn(c, *rest), parts))
+    return tuple(torch.cat(ts) for ts in zip(*outs))
+
+
+def group_norm_phase(dev, census, flush, card) -> list:
     """The GroupNorm kernel against its plain version, bit for bit (output,
     mean and rstd), at every shape of ``census`` and batch of
-    :data:`GN_BATCHES`; its time beside its byte bound (input read once,
-    output written once), the 6-byte bound of its two passes, its chain
-    floor and ATen's ``F.group_norm`` with the float32 casts."""
+    :data:`GN_BATCHES`, through both entries: the plain GroupNorm, and the
+    fused one with the conv bias, the skip and the LeakyReLU (and its
+    int8 form, without the bias, and without the skip), in bf16 and float32.
+    Times beside the byte bound (inputs read once, outputs written once),
+    ATen's ``F.group_norm`` with the float32 casts, and the unfused sequence
+    the blocks ran before (bias add, the plain entry, residual add,
+    LeakyReLU)."""
     import torch
     import torch.nn.functional as F
 
@@ -451,57 +480,122 @@ def group_norm_phase(dev, census, flush, card, clock_ghz) -> list:
 
     gen = torch.Generator(device=dev).manual_seed(12)
     rows = []
+    src = dict(route="cuda", source="hobot_stereonet_tpu_torch/csrc/group_norm.cu",
+               replaces="hand-written without a Pallas counterpart (flax GroupNorm, "
+                        "hobot_stereonet_tpu/models/layers.py, left to XLA)")
     for (mult, c, spatial), per_net in sorted(census.items()):
-        p = 1
-        for d in spatial:
-            p *= d
         g = num_groups(c)
         w = torch.rand(c, device=dev, generator=gen) + 0.5
         bias = torch.rand(c, device=dev, generator=gen) - 0.5
+        cb = torch.rand(c, device=dev, generator=gen) * 4 - 2
         fmt = torch.channels_last_3d if len(spatial) == 3 else torch.channels_last
-        for b in GN_BATCHES:
-            n = mult * b
-            x = (torch.randn((n, c) + spatial, device=dev, generator=gen) * 3 + 5).bfloat16()
-            x = x.contiguous(memory_format=fmt)
-            got, mean, rstd = kg._group_norm_cuda(x, g, w, bias, GN_EPS)
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            want, w_mean, w_rstd = kg.group_norm_plain(x, g, w, bias, GN_EPS)
-            end.record()
-            torch.cuda.synchronize()
-            plain_ms = start.elapsed_time(end)
-            equal = float((got == want).float().mean())
-            if not (torch.equal(got, want) and torch.equal(mean, w_mean)
-                    and torch.equal(rstd, w_rstd)):
-                raise AssertionError(f"group_norm {n}x{c}x{spatial} differs from its plain "
-                                     f"version: bit-equal {equal}, statistics equal "
-                                     f"{torch.equal(mean, w_mean)} / {torch.equal(rstd, w_rstd)}")
-            err = (got.float() - want.float()).abs().max().item()
-            del want, w_mean, w_rstd
-            elems = x.numel()
-            iters = 10 if elems > 2e8 else 30
-            ms = median_ms(lambda: kg.group_norm(x, g, w, bias, GN_EPS), flush, iters=iters)
-            lib_ms = median_ms(lambda: F.group_norm(x.float(), g, w, bias, GN_EPS).bfloat16(),
-                               flush, iters=iters)
-            bound_6b_ms = 6.0 * elems / HBM_BYTES_PER_S * 1e3
-            chain_floor_ms = GN_CYCLES_PER_POSITION * p / (clock_ghz * 1e9) * 1e3
-            rows.append(dict(
-                name=kg.NAME, shape=f"{n}x{c}x{'x'.join(map(str, spatial))}", batch=b,
-                key=(n, c, spatial), per_forward=per_net, route="cuda",
-                source="hobot_stereonet_tpu_torch/csrc/group_norm.cu",
-                replaces="hand-written without a Pallas counterpart (flax GroupNorm, "
-                         "hobot_stereonet_tpu/models/layers.py, left to XLA)",
-                tolerance="exact (output, mean, rstd)", max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound=bound(4.0 * elems, 8.0 * elems), library_ms=lib_ms))
-            r = rows[-1]
-            phase(f"kernel group_norm [{r['shape']}] bf16 (per forward {per_net}) B={b}: exact; "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, bound {r['bound'][0]:.4f} ms "
-                  f"({r['bound'][1]}, {100 * r['bound'][0] / ms:.0f}% of it), 6-byte bound "
-                  f"{bound_6b_ms:.4f} ms, chain floor {chain_floor_ms:.4f} ms, ATen "
-                  f"F.group_norm with the float32 casts {lib_ms:.4f} ms (kernel / ATen "
-                  f"{ms / lib_ms:.3f}); {card}")
-            del x, got, mean, rstd
-        torch.cuda.empty_cache()
+        view = (1, -1) + (1,) * len(spatial)
+        for dtype in (torch.bfloat16, torch.float32):
+            tag = "bf16" if dtype == torch.bfloat16 else "f32"
+            for b in GN_BATCHES:
+                n = mult * b
+                x = (torch.randn((n, c) + spatial, device=dev, generator=gen) * 3 + 1).to(dtype)
+                x = x.contiguous(memory_format=fmt)
+                sk = torch.randn((n, c) + spatial, device=dev, generator=gen).to(dtype)
+                sk = sk.contiguous(memory_format=fmt)
+                a = x + cb.to(dtype).view(view)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                want, w_mean, w_rstd = _plain_by_chunks(kg.group_norm_plain, x, g, w, bias, GN_EPS)
+                end.record()
+                torch.cuda.synchronize()
+                plain_ms = start.elapsed_time(end)
+                want_a, a_mean, a_rstd = _plain_by_chunks(kg.group_norm_plain, a, g, w, bias,
+                                                          GN_EPS)
+                # The launch's own mode (walk in order or scan, from N * C) and the other.
+                in_order = kg.walks_in_order(n, c)
+                mode, other = ("walk in order", "scan") if in_order else ("scan", "walk in order")
+                checks = {
+                    "plain entry": (kg._group_norm_cuda(x, g, w, bias, GN_EPS),
+                                    (want, w_mean, w_rstd)),
+                    f"plain entry, {other}": (
+                        kg._launch(x, g, w, bias, GN_EPS, None, None, False,
+                                   sequential=not in_order)[:3], (want, w_mean, w_rstd)),
+                    "fused, bias + skip": (
+                        kg._group_norm_cuda(x, g, w, bias, GN_EPS, conv_bias=cb, skip=sk,
+                                            activate=True),
+                        (kg.leaky_relu(sk + want_a), a_mean, a_rstd)),
+                    f"fused, bias + skip, {other}": (
+                        kg._launch(x, g, w, bias, GN_EPS, cb, sk, True,
+                                   sequential=not in_order)[:3],
+                        (kg.leaky_relu(sk + want_a), a_mean, a_rstd)),
+                    "fused, bias": (
+                        kg._group_norm_cuda(x, g, w, bias, GN_EPS, conv_bias=cb, activate=True),
+                        (kg.leaky_relu(want_a), a_mean, a_rstd)),
+                    "fused, int8 form (no bias) + skip": (
+                        kg._group_norm_cuda(x, g, w, bias, GN_EPS, skip=sk, activate=True),
+                        (kg.leaky_relu(sk + want), w_mean, w_rstd)),
+                }
+                torch.cuda.synchronize()
+                for label, (got, exp) in checks.items():
+                    if not all(torch.equal(u, v) for u, v in zip(got, exp)):
+                        raise AssertionError(
+                            f"group_norm {label} {n}x{c}x{spatial} {tag} differs from its plain "
+                            f"version: bit-equal {float((got[0] == exp[0]).float().mean())}, "
+                            f"statistics equal {torch.equal(got[1], exp[1])} / "
+                            f"{torch.equal(got[2], exp[2])}")
+                err = max((got[0].float() - exp[0].float()).abs().max().item()
+                          for got, exp in checks.values())
+                del want, want_a, checks
+                elems = x.numel()
+                esize = x.element_size()
+                iters = 10 if elems > 2e8 else 30
+                ms = median_ms(lambda: kg.group_norm(x, g, w, bias, GN_EPS), flush, iters=iters)
+                other_ms = median_ms(lambda: kg._launch(x, g, w, bias, GN_EPS, None, None, False,
+                                                        sequential=not in_order), flush,
+                                     iters=iters)
+                fused_ms = median_ms(lambda: kg.group_norm_fused(
+                    x, g, w, bias, GN_EPS, conv_bias=cb, skip=sk, activate=True), flush,
+                    iters=iters)
+                fused_noskip_ms = median_ms(lambda: kg.group_norm_fused(
+                    x, g, w, bias, GN_EPS, conv_bias=cb, activate=True), flush, iters=iters)
+                lib_ms = median_ms(lambda: F.group_norm(x.float(), g, w, bias, GN_EPS).to(dtype),
+                                   flush, iters=iters)
+                seq_ms = median_ms(lambda: kg.leaky_relu(sk + kg.group_norm(
+                    x + cb.to(dtype).view(view), g, w, bias, GN_EPS)), flush, iters=iters)
+                # One fused call's six phases (kernel diagnostics: block 0's clock).
+                clock = torch.zeros(9, dtype=torch.int64, device=dev)
+                kg._launch(x, g, w, bias, GN_EPS, cb, sk, True, clock=clock)
+                clock = clock.tolist()
+                phases_us = [round((b_ - a_) / 1e3, 1) for a_, b_ in zip(clock[:6], clock[1:7])]
+                shape = f"{n}x{c}x{'x'.join(map(str, spatial))}"
+                # Launch counts by shape and form (group_norm_shapes); float32 runs on no path.
+                key = (n, c, spatial) if dtype == torch.bfloat16 else (n, c, spatial, tag)
+                common = dict(name=kg.NAME, shape=shape, batch=b, per_forward=per_net,
+                              tolerance="exact (output, mean, rstd)", max_abs_err=err,
+                              plain_ms=plain_ms, **src)
+                rows.append(dict(common, mode=f"plain entry, {tag}, {mode}", ms=ms,
+                                 library_ms=lib_ms, key=key + ("plain",), other_mode_ms=other_ms,
+                                 bound=bound(2.0 * esize * elems, 8.0 * elems)))
+                rows.append(dict(common, mode=f"fused bias + skip + LeakyReLU, {tag}, {mode}",
+                                 ms=fused_ms, library_ms=None, unfused_ms=seq_ms,
+                                 key=key + ("skip",),
+                                 bound=bound(3.0 * esize * elems, 12.0 * elems)))
+                rows.append(dict(common, mode=f"fused bias + LeakyReLU, {tag}, {mode}",
+                                 ms=fused_noskip_ms, library_ms=None, key=key + ("no skip",),
+                                 bound=bound(2.0 * esize * elems, 10.0 * elems)))
+                r0, r1, r2 = rows[-3:]
+                phase(f"kernel group_norm [{shape}] {tag} (per forward {per_net}) B={b}: exact, "
+                      f"plain entry and fused (bias + skip, bias, no bias + skip), {mode} and "
+                      f"{other}; plain entry {ms:.4f} ms (bound {r0['bound'][0]:.4f}, "
+                      f"{100 * r0['bound'][0] / ms:.0f}%), the same by {other} {other_ms:.4f} "
+                      f"ms, ATen F.group_norm with the float32 casts {lib_ms:.4f} ms (kernel / "
+                      f"ATen {ms / lib_ms:.3f}); fused with skip {fused_ms:.4f} ms (bound "
+                      f"{r1['bound'][0]:.4f}, {100 * r1['bound'][0] / fused_ms:.0f}%), the "
+                      f"unfused sequence {seq_ms:.4f} ms; fused without skip "
+                      f"{fused_noskip_ms:.4f} ms (bound {r2['bound'][0]:.4f}, "
+                      f"{100 * r2['bound'][0] / fused_noskip_ms:.0f}%); plain version "
+                      f"{plain_ms:.1f} ms; fused call's phases (sums, prediction, maps, ordered "
+                      f"walk, statistics, output) {phases_us} us, {clock[7]} windows and "
+                      f"{clock[8]} segments stepped alone in its ordered walk; {card}")
+                del x, sk, a
+            torch.cuda.empty_cache()
     return rows
 
 
@@ -669,15 +763,23 @@ def record_tf32(seen: dict, key):
 @contextlib.contextmanager
 def group_norm_shapes(model, counts: dict):
     """While open, count ``model``'s GroupNorm calls in ``counts`` by input
-    shape: {(N, C, spatial): calls}."""
+    shape and form: {(N, C, spatial, form): calls}, form "skip" (a residual
+    block's fused call), "no skip" (fused, the conv bias and LeakyReLU
+    alone) or "plain" (the unfused GroupNorm)."""
     from hobot_stereonet_tpu_torch.models.layers import GroupNorm
 
-    def hook(mod, args):
+    def hook(mod, args, kwargs):
         x = args[0]
-        key = (x.shape[0], x.shape[1], tuple(x.shape[2:]))
+        if kwargs.get("skip") is not None:
+            form = "skip"
+        elif kwargs.get("conv_bias") is not None or kwargs.get("activate"):
+            form = "no skip"
+        else:
+            form = "plain"
+        key = (x.shape[0], x.shape[1], tuple(x.shape[2:]), form)
         counts[key] = counts.get(key, 0) + 1
 
-    hooks = [m.register_forward_pre_hook(hook) for m in model.modules()
+    hooks = [m.register_forward_pre_hook(hook, with_kwargs=True) for m in model.modules()
              if isinstance(m, GroupNorm)]
     try:
         yield counts
@@ -743,6 +845,35 @@ def profile_summary(prof, top: int = 10) -> tuple:
     total = sum(a.device_time_total for a in kernels) / 1e3
     return (busy / span if span > 0 else 0.0, total,
             [(a.key, a.device_time_total / 1e3, a.count) for a in kernels[:top]])
+
+
+ELEMENTWISE = {"where": ("where",), "add": ("CUDAFunctor_add", "add_kernel"),
+               "mul": ("MulFunctor", "mul_kernel"), "compare": ("Compare", "_ge_", "ge_kernel")}
+
+
+def elementwise_calls(prof, what: str) -> dict:
+    """Device launches in a profile of the elementwise ops that stood around
+    each GroupNorm before the fusion (LeakyReLU's compare, multiply and
+    ``where``, the bias and residual adds), and of the GroupNorm kernel;
+    fails if a ``where`` (the LeakyReLU's) ran."""
+    def on_device(e) -> bool:
+        return str(getattr(e, "device_type", "")).endswith("CUDA")
+
+    counts = dict.fromkeys(list(ELEMENTWISE) + ["group_norm_scan_kernel"], 0)
+    for a in prof.key_averages():
+        if not on_device(a):
+            continue
+        for fam, keys in ELEMENTWISE.items():
+            if any(k in a.key for k in keys):
+                counts[fam] += a.count
+        if "group_norm_scan_kernel" in a.key:
+            counts["group_norm_scan_kernel"] += a.count
+    phase(f"profile {what}: elementwise launches around the GroupNorms (fused into its "
+          f"kernel): {counts}")
+    if counts["where"]:
+        raise AssertionError(f"{what}: {counts['where']} where launches: a LeakyReLU ran "
+                             f"outside the GroupNorm kernel")
+    return counts
 
 
 def serve_frames(eng, feed) -> list:
@@ -894,6 +1025,8 @@ def int8_and_rgb_phase(ctx: dict) -> dict:
             _, event = e8._launch((ring, slots))
             e8._wait(event)
         busy, total, top = profile_summary(prof)
+        if top:
+            elementwise_calls(prof, f"int8 {scheme} batch {N_FRAMES}")
         phase(f"profile int8 {scheme}: one ring-fed batch of {N_FRAMES} at {W}x{H}: device busy "
               f"{100 * busy:.1f} % of the traced window, {total:.3f} ms of device time; the "
               f"largest kernels and copies: {card}")
@@ -1092,6 +1225,8 @@ def classic_phase(ctx: dict) -> tuple:
             _, event = eng._launch((ring, slots[:b]))
             eng._wait(event)
         busy, total, top = profile_summary(prof, top=16 if b > 1 else 6)
+        if top:
+            elementwise_calls(prof, f"classic batch {b}")
         phase(f"profile classic: one ring-fed batch of {b} at {W}x{H}, microbatch 8: device "
               f"busy {100 * busy:.1f} % of the traced window, {total:.3f} ms of device time; the "
               f"largest kernels and copies: {card}")
@@ -1502,14 +1637,16 @@ def main() -> int:
     igmma = min(sass(k, "IGMMA") for k in ("int8_conv_wgmma_kernel", "int8_conv_dense_kernel"))
     tma = sass("int8_conv_wgmma_kernel", "UTMALDG")
     ingest_st = sass("nv12_ingest_kernel", "STG.128")
-    gn_bulk = sass("group_norm_stats_kernel", "UBLKCP")
-    if min(hmma, vec, igmma, tma, ingest_st, gn_bulk) <= 0:
+    gn_shfl = sass("group_norm_scan_kernel", "SHFL")
+    gn_bulk = sass("group_norm_walk_kernel", "UBLKCP")
+    if min(hmma, vec, igmma, tma, ingest_st, gn_shfl, gn_bulk) <= 0:
         raise AssertionError(f"expected HMMA in correlation_bf16_kernel ({hmma}), 128-bit "
                              f"loads in soft_argmin_vector_kernel ({vec}), IGMMA (warpgroup "
                              f"int8 MMA) in both int8 conv kernels ({igmma}), UTMALDG (TMA "
                              f"loads) in int8_conv_wgmma_kernel ({tma}), 128-bit stores in "
-                             f"nv12_ingest_kernel ({ingest_st}) and UBLKCP (bulk copies) in "
-                             f"group_norm_stats_kernel ({gn_bulk})")
+                             f"nv12_ingest_kernel ({ingest_st}), SHFL (warp shuffles: the "
+                             f"scan's combines) in group_norm_scan_kernel ({gn_shfl}) and "
+                             f"UBLKCP (bulk copies) in group_norm_walk_kernel ({gn_bulk})")
 
     # 3. kernels vs plain, at each batch -----------------------------------------
     rng = np.random.default_rng(0)
@@ -1532,7 +1669,7 @@ def main() -> int:
                       for net in ("fast", "classic")}
     phase(f"groupnorm: the GroupNorm inputs at {W}x{H}, batch 1 (samples, channels, spatial): "
           f"GroupNorms a forward {census}; in all {gn_per_forward}")
-    gn_rows = group_norm_phase(dev, census, flush, card, clock_ghz)
+    gn_rows = group_norm_phase(dev, census, flush, card)
     rows += gn_rows
     phase(f"groupnorm: {len(gn_rows)} shapes and batches exact ({time.monotonic() - t:.1f} s)")
     del flush
@@ -1784,6 +1921,7 @@ def main() -> int:
         if not top:
             phase("profile: torch.profiler's key_averages() show no device time on this machine")
             break
+        elementwise_calls(prof, f"flagship bf16 batch {b}")
         phase(f"profile: one ring-fed batch of {b} at {W}x{H}, dispatch to completion: device "
               f"busy {100 * busy:.1f} % of the traced window, {total:.3f} ms of device time; "
               f"the largest kernels and copies: {card}")
@@ -1820,7 +1958,7 @@ def main() -> int:
     path_launches.update(train_launches)
 
     def row_launches(r):
-        if "key" in r:                            # a GroupNorm shape: its launches at it
+        if "key" in r:                            # a GroupNorm shape and form: its launches
             return gn_shapes.get(r["key"], 0)
         return path_launches[(r["name"], r.get("mode") or r.get("scheme"))]
 
@@ -1830,7 +1968,8 @@ def main() -> int:
         route=r["route"], source=r["source"], replaces=r["replaces"],
         batch=r["batch"], launches=row_launches(r), max_abs_err=r["max_abs_err"], ms=r["ms"],
         plain_ms=r["plain_ms"], bound_ms=r["bound"][0], bound_by=r["bound"][1],
-        library_ms=r["library_ms"], **{k: r[k] for k in ("cudnn_bf16_ms",) if k in r})
+        library_ms=r["library_ms"],
+        **{k: r[k] for k in ("cudnn_bf16_ms", "unfused_ms", "other_mode_ms") if k in r})
         for r in rows]}), flush=True)
     phase(f"done in {time.monotonic() - T0:.1f} s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -18,6 +18,13 @@ Where the reference's numerics differ from PyTorch's defaults:
   * a conv rounds its sum to the compute dtype and then adds the bias in
     that dtype, as flax's ``nn.Conv`` does: two roundings, not one.
 
+A block hands its conv's sum without the bias (``add_bias=False``) to its
+``GroupNorm_0`` with the bias, the skip and the activation
+(``GroupNorm_0(y, conv_bias=..., skip=..., activate=True)``): one kernel
+launch on the card for the bias add, the GroupNorm, the residual add and
+the LeakyReLU, each rounding where the unfused ops round (on the CPU, those
+very ops).
+
 Weights are float32 master weights, as flax's ``param_dtype=float32``: a
 conv computes in its ``compute_dtype`` (set from the config by
 :func:`set_compute_dtype`; None means its weight's dtype) and casts the
@@ -34,10 +41,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.kernels.group_norm import group_norm
+from ..ops.kernels.group_norm import group_norm_fused, leaky_relu
 from ..ops.kernels.int8_conv import same_pads
 
-NEGATIVE_SLOPE = 0.2
 GN_EPS = 1e-6
 
 
@@ -58,7 +64,9 @@ class SameConv2d(nn.Conv2d):
                  dilation: int = 1):
         super().__init__(in_ch, out_ch, kernel, stride=stride, padding=0, dilation=dilation)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, add_bias: bool = True) -> torch.Tensor:
+        """The conv in the compute dtype; ``add_bias=False``: its sum before
+        the bias add, which the caller then makes."""
         dt = self.compute_dtype or self.weight.dtype
         x, wt = x.to(dt), self.weight.to(dt)
         kh, kw = self.kernel_size
@@ -69,7 +77,7 @@ class SameConv2d(nn.Conv2d):
         else:
             y = F.conv2d(F.pad(x, (pw[0], pw[1], ph[0], ph[1])), wt, None,
                          self.stride, 0, self.dilation)
-        return y + self.bias.to(dt).view(1, -1, 1, 1)
+        return y + self.bias.to(dt).view(1, -1, 1, 1) if add_bias else y
 
 
 class SameConv3d(nn.Conv3d):
@@ -85,23 +93,29 @@ class SameConv3d(nn.Conv3d):
             raise ValueError(f"SameConv3d takes odd kernels, got {kernel}")
         super().__init__(in_ch, out_ch, kernel, padding=kernel // 2)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, add_bias: bool = True) -> torch.Tensor:
         dt = self.compute_dtype or self.weight.dtype
         y = F.conv3d(x.to(dt), self.weight.to(dt), None, 1, self.padding)
-        return y + self.bias.to(dt).view(1, -1, 1, 1, 1)
+        return y + self.bias.to(dt).view(1, -1, 1, 1, 1) if add_bias else y
 
 
-def leaky_relu(x: torch.Tensor) -> torch.Tensor:
-    """flax ``leaky_relu(x, 0.2)``: the slope is rounded to ``x``'s dtype."""
-    return torch.where(x >= 0, x, x * torch.tensor(NEGATIVE_SLOPE, dtype=x.dtype))
+def conv_without_bias(conv: nn.Module, x: torch.Tensor):
+    """(the conv's output before its bias add, that bias): a ``SameConv2d``
+    or ``SameConv3d`` leaves the add to the GroupNorm; any other conv (the
+    int8 conv, whose epilogue adds the bias) returns its output and None.
+    The conv runs through its ``__call__``, so that its hooks see it."""
+    if isinstance(conv, (SameConv2d, SameConv3d)):
+        return conv(x, add_bias=False), conv.bias
+    return conv(x), None
 
 
 class GroupNorm(nn.GroupNorm):
     """flax ``GroupNorm``: eps 1e-6, float32 statistics and parameters,
     over (C/G, *spatial) of NCHW or NCDHW input.
 
-    bf16 and float32 input go through :func:`~..ops.kernels.group_norm.group_norm`:
-    the CUDA kernel on the card, its plain version on the CPU.  Both compute
+    bf16 and float32 input go through
+    :func:`~..ops.kernels.group_norm.group_norm_fused`: the CUDA kernel on
+    the card, its plain version on the CPU.  Both compute
     ATen's one-thread statistics of a channels-last input, in one order
     whatever the thread count or the batch.  They are not the reference's
     to the last bit, and no formulation of them tried reproduces those
@@ -112,11 +126,19 @@ class GroupNorm(nn.GroupNorm):
     def __init__(self, channels: int):
         super().__init__(num_groups(channels), channels, eps=GN_EPS)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, conv_bias: Optional[torch.Tensor] = None,
+                skip: Optional[torch.Tensor] = None, activate: bool = False) -> torch.Tensor:
+        """GroupNorm of ``x``; with ``conv_bias``, ``skip`` or ``activate``:
+        ``leaky_relu([skip +] GroupNorm(x + conv_bias.to(x.dtype)))``."""
         if x.dtype == torch.float64:
-            return F.group_norm(x, self.num_groups, self.weight.double(), self.bias.double(),
-                                self.eps)
-        return group_norm(x, self.num_groups, self.weight.float(), self.bias.float(), self.eps)
+            a = x if conv_bias is None else x + conv_bias.to(x.dtype).view(
+                (1, -1) + (1,) * (x.dim() - 2))
+            r = F.group_norm(a, self.num_groups, self.weight.double(), self.bias.double(),
+                             self.eps)
+            r = r if skip is None else skip + r
+            return leaky_relu(r) if activate else r
+        return group_norm_fused(x, self.num_groups, self.weight.float(), self.bias.float(),
+                                self.eps, conv_bias=conv_bias, skip=skip, activate=activate)
 
 
 class ConvBlock(nn.Module):
@@ -129,7 +151,8 @@ class ConvBlock(nn.Module):
         self.GroupNorm_0 = GroupNorm(features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return leaky_relu(self.GroupNorm_0(self.Conv_0(x)))
+        y, bias = conv_without_bias(self.Conv_0, x)
+        return self.GroupNorm_0(y, conv_bias=bias, activate=True)
 
 
 class ResBlock2D(nn.Module):
@@ -143,8 +166,8 @@ class ResBlock2D(nn.Module):
         self.GroupNorm_0 = GroupNorm(features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.GroupNorm_0(self.Conv_0(self.ConvBlock_0(x)))
-        return leaky_relu(x + h)
+        y, bias = conv_without_bias(self.Conv_0, self.ConvBlock_0(x))
+        return self.GroupNorm_0(y, conv_bias=bias, skip=x, activate=True)
 
 
 class ConvBlock3D(nn.Module):
@@ -156,7 +179,8 @@ class ConvBlock3D(nn.Module):
         self.GroupNorm_0 = GroupNorm(features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return leaky_relu(self.GroupNorm_0(self.Conv_0(x)))
+        y, bias = conv_without_bias(self.Conv_0, x)
+        return self.GroupNorm_0(y, conv_bias=bias, activate=True)
 
 
 def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> nn.Module:

@@ -57,8 +57,10 @@ _SIGNATURES = {
     "hst_soft_argmin_dlead_backward": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
     # x, w, s_k, bias, sx, qs, y, plan (int8_conv.PlanArgs), per_sample, divide, stream
     "hst_int8_conv": (_P,) * 8 + (_I, _I, _P),
-    # x, gamma, beta, y, mean, rstd, scale-bias, N, C, P, G, eps, is_bf16, stream
-    "hst_group_norm": (_P,) * 7 + (_I, _I, _I, _I, ctypes.c_double, _I, _P),
+    # x, conv bias, bias is bf16, skip, activate, gamma, beta, y, r, mean, rstd,
+    # workspace, its bytes, phase clock, sequential, N, C, P, G, R, eps, is_bf16, stream
+    "hst_group_norm": (_P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P,
+                       _I, _I, _I, _I, _I, _I, ctypes.c_double, _I, _P),
 }
 
 _lock = threading.Lock()

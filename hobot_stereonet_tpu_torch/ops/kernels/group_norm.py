@@ -22,17 +22,25 @@ order for channels-last input):
      ``bias = fma(-scale, mean, beta_c)`` and ``y = fma(x, scale, bias)``,
      rounded to the input's dtype.
 
-Each (sample, channel) sum is one dependent chain, so the result of a
+Each (sample, channel) sum is one sequential chain, so the result of a
 sample does not depend on the batch it is in.  The CUDA source is
-``csrc/group_norm.cu``; :func:`group_norm_plain` is the same function in
-plain PyTorch and numpy.  :func:`group_norm` is differentiable: its
-backward is ATen's ``native_group_norm_backward`` on the float32 input
-with the forward's statistics, the backward ``F.group_norm`` runs.
+``csrc/group_norm.cu``: it computes those chains bit for bit by an exact
+parallel scan (its header states the invariant; :func:`scan_sums_model`
+here models it in numpy for the tests), or, where the batch supplies
+:data:`SEQUENTIAL_CHAINS` (sample, channel) pairs or more, by walking each
+chain in order, one thread a chain (a launch of its own before the rest).  :func:`group_norm_plain` is the same
+function in plain PyTorch and numpy.  :func:`group_norm_fused` adds the
+conv's bias before and a residual add and LeakyReLU after, in the same
+launch on the card; :func:`group_norm` is its call with none of the three.
+Both are differentiable: the backward is ATen's
+``native_group_norm_backward`` on the float32 input with the forward's
+statistics, the backward ``F.group_norm`` runs.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -144,6 +152,231 @@ def _fma_square_sums(a: np.ndarray) -> np.ndarray:
     return s.astype(np.float32).reshape(n, c)
 
 
+# ---------------------------------------------------------------------------
+# The statistics kernel's exact parallel scan, as a numpy model (tests only)
+# ---------------------------------------------------------------------------
+#
+# Mirrors csrc/group_norm.cu step by step: a sample's P positions in
+# segments of LANES runs of R positions, walked in order.  A map is in
+# units of a spacing u = 2^(E - 150) (E a float32 exponent field, the "key"): the
+# segment's is the spacing of the largest sum that the float64 prefix of
+# the segments' sums predicts in it.  A step whose value is a multiple of
+# u is exact wherever the sum stays below 2^24 u; a step that rounds needs
+# the sum in the top binade [2^23 u, 2^24 u).  A segment whose map cannot
+# be taken is stepped alone.  :func:`scan_sums_model` returns the chains'
+# bits and how often that fallback ran.
+
+LANES = 32                     # lanes a warp: runs a segment, segments a window
+KEY_NONE = -1                  # no spacing: the sum is out of the range a key takes
+MAP_INF = 1 << 29              # a bound with no prefix (identity) or a dead path
+MAP_REACH = 1 << 25            # a path that moved this far cannot pass any check
+Q_LIMIT = float(1 << 22)       # a run whose sum of |v / u| reaches this is dead
+KEY_EXPONENTS = (32, 200)      # exponent fields a key takes
+# A map: int64 rows (a0, a1, lo0, lo1, hi0, hi1, rl0, rl1, rh0, rh1): for a
+# start k (units of u) of parity p the steps add a_p, every prefix lies in
+# [k + lo_p, k + hi_p] and every prefix right after a rounding step in
+# [k + rl_p, k + rh_p].
+IDENTITY = np.array([0, 0] + [MAP_INF] * 2 + [-MAP_INF] * 2 + [MAP_INF] * 2 + [-MAP_INF] * 2,
+                    np.int64)
+DEAD = np.array([0, 0] + [-MAP_INF] * 2 + [MAP_INF] * 2 + [MAP_INF] * 2 + [-MAP_INF] * 2,
+                np.int64)
+
+
+def scan_run_length(c: int) -> int:
+    """R, positions of a lane's run: a segment (LANES runs) holds about 16K
+    elements; even, so that a bf16 run fills whole 4-byte words."""
+    return min(128, max(2, (512 // c) & ~1))
+
+
+def _field(s) -> int:
+    return (int(np.asarray(s, np.float32).view(np.uint32)) >> 23) & 0xFF
+
+
+def scan_key(m) -> int:
+    """The key for a sum of magnitude up to ``m``: the exponent field of
+    float32(|m|), 127 for zero, KEY_NONE outside the fields a key takes."""
+    m = abs(float(np.float32(m)))
+    e = 127 if m == 0 else _field(m)
+    if not np.isfinite(m) or e > KEY_EXPONENTS[1]:
+        return KEY_NONE
+    return max(e, KEY_EXPONENTS[0])
+
+
+def _start(s, key):
+    """s in units of u(key), an integer of magnitude below 2^24, or None."""
+    if key == KEY_NONE or not np.isfinite(s):
+        return None
+    k = float(s) * 2.0 ** (150 - key)
+    return int(k) if abs(k) < 2 ** 24 and k == np.rint(k) else None
+
+
+def _value(k: int, key: int) -> np.float32:
+    return np.float32(k * 2.0 ** (key - 150))
+
+
+def _range_ok(m: np.ndarray, k, key: int) -> np.ndarray:
+    """Whether map(s) ``m`` [..., 10] are exact from a start k: every prefix
+    below 2^24 in magnitude, every prefix after a rounding step strictly
+    inside one sign's top binade (2^23, 2^24)."""
+    if key == KEY_NONE or k is None:
+        return np.zeros(m.shape[:-1], bool)
+    p = k & 1
+    ok = (k + m[..., 2 + p] > -(1 << 24)) & (k + m[..., 4 + p] < (1 << 24))
+    return ok & ((k + m[..., 6 + p] > (1 << 23)) | (k + m[..., 8 + p] < -(1 << 23)))
+
+
+def _normalize(m: np.ndarray) -> np.ndarray:
+    """A path whose prefix moved MAP_REACH or more is dead."""
+    for p in (0, 1):
+        dead = (m[..., 2 + p] <= -MAP_REACH) | (m[..., 4 + p] >= MAP_REACH)
+        for col, v in ((p, 0), (2 + p, -MAP_INF), (4 + p, MAP_INF), (6 + p, MAP_INF),
+                       (8 + p, -MAP_INF)):
+            m[..., col] = np.where(dead, v, m[..., col])
+    return m
+
+
+def scan_compose(f: np.ndarray, g: np.ndarray) -> np.ndarray:
+    """The map of f's steps then g's (rows of :data:`IDENTITY`'s layout).
+    Associative."""
+    out = np.empty(np.broadcast_shapes(f.shape, g.shape), np.int64)
+    for p in (0, 1):
+        fa = f[..., p]
+        odd = ((p + fa) & 1).astype(bool)
+
+        def pick(col):
+            return np.where(odd, g[..., col + 1], g[..., col])
+
+        out[..., p] = fa + pick(0)
+        out[..., 2 + p] = np.minimum(f[..., 2 + p], fa + pick(2))
+        out[..., 4 + p] = np.maximum(f[..., 4 + p], fa + pick(4))
+        out[..., 6 + p] = np.minimum(f[..., 6 + p], fa + pick(6))
+        out[..., 8 + p] = np.maximum(f[..., 8 + p], fa + pick(8))
+    return _normalize(out)
+
+
+def scan_run_maps(v: np.ndarray, valid: np.ndarray, key, q32: bool) -> np.ndarray:
+    """Each run's map (a lane's work): ``v`` float64 [runs, R] the exact
+    step values (x, or x * x), ``valid`` the positions that exist, ``key``
+    the run's spacing.  ``q32``: the kernel scales v in float32 (v a float32
+    value), else in float64."""
+    key = np.broadcast_to(np.asarray(key, np.int64), v.shape[:1])
+    scale = np.ldexp(1.0, 150 - np.where(key == KEY_NONE, 150, key))[:, None]
+    with np.errstate(over="ignore", invalid="ignore"):
+        q = v * scale                                  # v / u, exact but for overflow
+        if q32:
+            q = q.astype(np.float32).astype(np.float64)
+        ne = np.rint(q)                                # half to even
+        diff = q - ne
+        rounds = diff != 0
+        d = np.where(np.abs(diff) == 0.5, np.where(diff > 0, 1, -1), 0)
+        qabs = np.where(valid, np.abs(q), 0.0)
+        qsum = np.cumsum(qabs.astype(np.float32) if q32 else qabs, axis=1)[:, -1]
+        t = np.where(valid & np.isfinite(ne) & (np.abs(ne) < 2 * Q_LIMIT), ne, 0).astype(np.int64)
+    n = v.shape[0]
+    m = np.tile(IDENTITY, (n, 1))
+    for r in range(v.shape[1]):
+        ok, rd = valid[:, r], valid[:, r] & rounds[:, r]
+        for p in (0, 1):
+            a = m[:, p]
+            odd = ((p + a) & 1).astype(bool)
+            a = np.where(ok, a + t[:, r] + np.where(odd, d[:, r], 0), a)
+            m[:, p] = a
+            m[:, 2 + p] = np.where(ok, np.minimum(m[:, 2 + p], a), m[:, 2 + p])
+            m[:, 4 + p] = np.where(ok, np.maximum(m[:, 4 + p], a), m[:, 4 + p])
+            m[:, 6 + p] = np.where(rd, np.minimum(m[:, 6 + p], a), m[:, 6 + p])
+            m[:, 8 + p] = np.where(rd, np.maximum(m[:, 8 + p], a), m[:, 8 + p])
+    m = _normalize(m)
+    dead = (key == KEY_NONE) | ~(qsum < Q_LIMIT)
+    return np.where(dead[:, None], DEAD, m)
+
+
+def _fold(maps: np.ndarray) -> np.ndarray:
+    """Inclusive prefix compositions of maps [n, 10] in order."""
+    out = maps.copy()
+    for i in range(1, len(maps)):
+        out[i] = scan_compose(out[i - 1], maps[i])
+    return out
+
+
+def _step(s: np.float32, v: float) -> np.float32:
+    """One chain step alone: float32(s + v) rounded once (v exact)."""
+    return add_f32(np.array([v]), np.array([float(s)]))[0]
+
+
+def scan_chain_model(v: np.ndarray, q32: bool, r: int, counts: dict) -> np.float32:
+    """One chain, s = float32(s + v_p) for p in order from s = 0, as the
+    kernel computes it; ``v`` float64 [P] exact step values."""
+    p_len = len(v)
+    seg_len = LANES * r
+    k_segs = -(-p_len // seg_len)
+    vv = np.zeros(k_segs * seg_len)
+    vv[:p_len] = v
+    valid = (np.arange(k_segs * seg_len) < p_len).reshape(k_segs, LANES, r)
+    vv = vv.reshape(k_segs, LANES, r)
+    # Phases 1-2: each run's sum and its prefixes' least and largest
+    # (float32 where q32), each segment's in float64 over its runs; the
+    # float64 prefix of the segments' sums, and the largest magnitude a
+    # segment's sum is predicted to reach, give its key.
+    pre = np.cumsum(vv.astype(np.float32) if q32 else vv, axis=2)
+    run_sum = pre[..., -1].astype(np.float64)
+    off = np.cumsum(run_sum, axis=1) - run_sum                    # runs' offsets in a segment
+    mn = np.minimum((off + pre.min(axis=2)).min(axis=1), 0.0)
+    mx = np.maximum((off + pre.max(axis=2)).max(axis=1), 0.0)
+    agg = run_sum.sum(axis=1)
+    start = np.concatenate([[0.0], np.cumsum(agg)[:-1]])
+    keys = np.array([scan_key(max(abs(e + lo), abs(e + hi)))
+                     for e, lo, hi in zip(start, mn, mx)])
+    # Phase 3: every segment's map under its key.
+    runs = scan_run_maps(vv.reshape(-1, r), valid.reshape(-1, r), np.repeat(keys, LANES), q32)
+    seg_maps = _fold(runs.reshape(k_segs, LANES, 10).transpose(1, 0, 2))[-1]
+
+    def slow(i: int, s: np.float32) -> np.float32:
+        counts["segments"] += 1
+        for x, ok in zip(vv[i].reshape(-1), valid[i].reshape(-1)):
+            if ok:
+                s = _step(s, x)
+                counts["steps"] += 1
+        return s
+
+    # Phase 4: the segments in order, each applied from s in units of its
+    # key, up to one that fails, which is stepped alone (the kernel loads
+    # LANES segments a window; the order is the same).
+    s = np.float32(0.0)
+    for i in range(k_segs):
+        k = _start(s, keys[i])
+        if k is not None and _range_ok(seg_maps[i], k, keys[i]):
+            s = _value(k + int(seg_maps[i][k & 1]), keys[i])
+        else:
+            s = slow(i, s)
+    return s
+
+
+def scan_sums_model(a: np.ndarray, bf16: bool, r: int = 0):
+    """(s1, s2, counts): the statistics kernel's chains over float32 ``a``
+    [N, P, C] (the values as the kernel reads them: bf16 values when
+    ``bf16``), float32 [N, C] each, bit for bit the sequential chains
+    ``s1 += x`` and ``s2 = fma(x, x, s2)`` (bf16: ``s2 += x * x``, as the
+    plain version sums them); ``counts``: the segments stepped alone and
+    their steps, over all chains."""
+    n, p, c = a.shape
+    r = r or scan_run_length(c)
+    counts = {"chains": 0, "positions": 0, "segments": 0, "steps": 0}
+    s1 = np.zeros((n, c), np.float32)
+    s2 = np.zeros((n, c), np.float32)
+    for i in range(n):
+        for j in range(c):
+            x = a[i, :, j]
+            # bf16: x * x rounded to float32 (exact but below the normal
+            # range), then added; float32: ATen's fma, the square exact.
+            with np.errstate(over="ignore"):
+                sq = (x * x).astype(np.float64) if bf16 else np.square(x.astype(np.float64))
+                s1[i, j] = scan_chain_model(x.astype(np.float64), True, r, counts)
+                s2[i, j] = scan_chain_model(sq, bf16, r, counts)
+            counts["chains"] += 2
+            counts["positions"] += 2 * p
+    return s1, s2, counts
+
+
 def statistics_plain(x: torch.Tensor, num_groups: int, eps: float):
     """(mean, rstd), each float32 [N, G], of bf16 or float32 ``x``
     (steps 1-5 of the module docstring)."""
@@ -189,64 +422,197 @@ def group_norm_plain(x: torch.Tensor, num_groups: int, weight: torch.Tensor,
     return out.copy_(y), mean, rstd
 
 
+def workspace_bytes(n: int, c: int, p: int, r: int, sequential: bool) -> int:
+    """Bytes of the kernel's scratch (csrc/group_norm.cu ``layout``): the
+    segments' sums, their prefixes' extremes, keys and maps (none when the
+    chains are walked in order), the chains, the (scale, shift) and the
+    grid barrier, each 256-byte aligned."""
+    k = 0 if sequential else -(-p // (LANES * r))
+    chains = 2 * n * c * k
+
+    def al(b):
+        return -(-b // 256) * 256
+
+    return (al(chains * 8) * 2 + al(chains * 4) + al(chains * 40) + al(2 * n * c * 4)
+            + al(n * c * 8) + 256)
+
+
+# (sample, channel) pairs from which the kernel walks each chain in order
+# rather than scanning it.  The scan's maps cost grows with the batch; the
+# walk's time does not (P dependent steps a chain, the chains side by side),
+# and from here on it is the shorter at the networks' shapes on an H100
+# (PERF.md, the GroupNorm per shape; scripts/torch_group_norm_modes.py).
+# Below it the scan spreads each chain over the card.
+SEQUENTIAL_CHAINS = 1024
+
+
+def walks_in_order(n: int, c: int) -> bool:
+    """Whether the kernel walks the chains of ``n`` samples of ``c``
+    channels in order (else it scans them)."""
+    return n * c >= SEQUENTIAL_CHAINS
+
+
 def _group_norm_cuda(x: torch.Tensor, num_groups: int, weight: torch.Tensor,
-                     bias: torch.Tensor, eps: float):
-    """The kernel: channels-last bf16 or float32 on the card."""
+                     bias: torch.Tensor, eps: float, conv_bias: Optional[torch.Tensor] = None,
+                     skip: Optional[torch.Tensor] = None, activate: bool = False):
+    """The kernel: channels-last bf16 or float32 on the card -> (out, mean, rstd)."""
+    return _launch(x, num_groups, weight, bias, eps, conv_bias, skip, activate)[:3]
+
+
+def _launch(x: torch.Tensor, num_groups: int, weight: torch.Tensor, bias: torch.Tensor,
+            eps: float, conv_bias: Optional[torch.Tensor], skip: Optional[torch.Tensor],
+            activate: bool, keep_r: bool = False, sequential: Optional[bool] = None,
+            clock: Optional[torch.Tensor] = None):
+    """One launch of the kernel -> (out, mean, rstd, r); r (the value
+    before the activation) only with ``keep_r``.  ``sequential``: walk the
+    chains in order (True) or scan them (False); None: :func:`walks_in_order`.
+    ``clock``: None, or a CUDA int64 tensor of 9 (diagnostics): the launch
+    overwrites its first 7 with the device time (ns) at its start and at the
+    end of each of its six phases (block 0's view) and adds to the last 2
+    its ordered walk's windows and the segments it stepped alone."""
     _check(x, num_groups, weight, bias)
     fmt = _memory_format(x)
     if not x.is_contiguous(memory_format=fmt):
         raise ValueError(f"{NAME}: the kernel takes {fmt} input, got strides {x.stride()}")
     if weight.device != x.device or bias.device != x.device:
         raise ValueError(f"{NAME}: weight and bias must be on {x.device}")
+    if conv_bias is not None and (conv_bias.dtype not in (torch.float32, torch.bfloat16)
+                                  or conv_bias.shape != (x.shape[1],)
+                                  or conv_bias.device != x.device):
+        raise ValueError(f"{NAME}: conv_bias must be float32 or bf16 [{x.shape[1]}] on "
+                         f"{x.device}, got {conv_bias.dtype} {tuple(conv_bias.shape)}")
+    if skip is not None and (skip.dtype != x.dtype or skip.shape != x.shape
+                             or not skip.is_contiguous(memory_format=fmt)):
+        raise ValueError(f"{NAME}: skip must be {x.dtype} {tuple(x.shape)} in {fmt}, got "
+                         f"{skip.dtype} {tuple(skip.shape)} strides {skip.stride()}")
+    if clock is not None and (clock.dtype != torch.int64 or clock.numel() < 9
+                              or clock.device != x.device):
+        raise ValueError(f"{NAME}: clock must be int64 [9] on {x.device}")
     n, c = x.shape[:2]
     p = math.prod(x.shape[2:])
+    r = scan_run_length(c)
+    sequential = walks_in_order(n, c) if sequential is None else bool(sequential)
     y = torch.empty_like(x, memory_format=fmt)
+    pre = torch.empty_like(x, memory_format=fmt) if keep_r else None
     mean = torch.empty((n, num_groups), dtype=torch.float32, device=x.device)
     rstd = torch.empty_like(mean)
-    scale = torch.empty((n, c, 2), dtype=torch.float32, device=x.device)
     if x.numel():
+        work = torch.empty(workspace_bytes(n, c, p, r, sequential), dtype=torch.uint8,
+                           device=x.device)
         err = build.library().hst_group_norm(
-            x.data_ptr(), weight.contiguous().data_ptr(), bias.contiguous().data_ptr(),
-            y.data_ptr(), mean.data_ptr(), rstd.data_ptr(), scale.data_ptr(), n, c, p,
-            num_groups, float(eps), int(x.dtype == torch.bfloat16), build.stream_handle(x))
+            x.data_ptr(), conv_bias.contiguous().data_ptr() if conv_bias is not None else None,
+            int(conv_bias is not None and conv_bias.dtype == torch.bfloat16),
+            skip.data_ptr() if skip is not None else None, int(activate),
+            weight.contiguous().data_ptr(), bias.contiguous().data_ptr(), y.data_ptr(),
+            pre.data_ptr() if keep_r else None, mean.data_ptr(), rstd.data_ptr(),
+            work.data_ptr(), work.numel(),
+            clock.data_ptr() if clock is not None else None, int(sequential), n, c, p,
+            num_groups, r, float(eps), int(x.dtype == torch.bfloat16), build.stream_handle(x))
         build.check(NAME, err)
         build.launch_counts[NAME] += 1
-    return y, mean, rstd
+    return y, mean, rstd, pre
 
 
-class _GroupNorm(torch.autograd.Function):
+# ---------------------------------------------------------------------------
+# The fused entry: leaky_relu_0.2([skip +] GroupNorm(conv_out + bias))
+# ---------------------------------------------------------------------------
+
+NEGATIVE_SLOPE = 0.2
+
+
+def leaky_relu(x: torch.Tensor) -> torch.Tensor:
+    """flax ``leaky_relu(x, 0.2)``: the slope is rounded to ``x``'s dtype."""
+    return torch.where(x >= 0, x, x * torch.tensor(NEGATIVE_SLOPE, dtype=x.dtype))
+
+
+def _channel_view(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return t.view((1, -1) + (1,) * (x.dim() - 2))
+
+
+def group_norm_fused_plain(x: torch.Tensor, num_groups: int, weight: torch.Tensor,
+                           bias: torch.Tensor, eps: float,
+                           conv_bias: Optional[torch.Tensor] = None,
+                           skip: Optional[torch.Tensor] = None, activate: bool = False):
+    """The fused entry's function as the unfused ops compute it: ``a = x +
+    conv_bias.to(x.dtype)``, ``r = [skip +] group_norm_plain(a)``, ``out =
+    leaky_relu(r)`` with ``activate`` (else r).  Returns (out, r, mean, rstd)."""
+    a = x if conv_bias is None else x + _channel_view(conv_bias.to(x.dtype), x)
+    g, mean, rstd = group_norm_plain(a, num_groups, weight, bias, eps)
+    r = g if skip is None else skip + g
+    return (leaky_relu(r) if activate else r), r, mean, rstd
+
+
+class _GroupNormFused(torch.autograd.Function):
+    """The fused entry; its backward is the unfused ops' autograd: the
+    LeakyReLU's two branches at the forward's r, the residual add, ATen's
+    ``native_group_norm_backward`` on a (recomputed) with the forward's
+    statistics (the backward ``F.group_norm`` runs), and the bias add's sum."""
+
     @staticmethod
-    def forward(ctx, x, weight, bias, num_groups, eps):
+    def forward(ctx, x, weight, bias, conv_bias, skip, num_groups, eps, activate, keep):
         if x.device.type == "cpu":
-            y, mean, rstd = group_norm_plain(x, num_groups, weight, bias, eps)
+            out, r, mean, rstd = group_norm_fused_plain(x, num_groups, weight, bias, eps,
+                                                        conv_bias, skip, activate)
         elif x.device.type == "cuda":
-            y, mean, rstd = _group_norm_cuda(x, num_groups, weight, bias, eps)
+            out, mean, rstd, r = _launch(x, num_groups, weight, bias, eps, conv_bias, skip,
+                                         activate, keep_r=keep and activate)
         else:
             raise ValueError(f"{NAME}: unsupported device {x.device}")
-        ctx.save_for_backward(x, weight, mean, rstd)
-        ctx.num_groups = num_groups
-        return y
+        ctx.save_for_backward(x, weight, conv_bias, mean, rstd, r if keep and activate else None)
+        ctx.num_groups, ctx.activate = num_groups, activate
+        ctx.has_skip = skip is not None
+        return out
 
     @staticmethod
-    def backward(ctx, dy):
-        x, weight, mean, rstd = ctx.saved_tensors
+    def backward(ctx, dout):
+        x, weight, conv_bias, mean, rstd, r = ctx.saved_tensors
+        need_x, need_w, need_b, need_cb, need_skip = ctx.needs_input_grad[:5]
+        d_r = dout
+        if ctx.activate:
+            mask = r >= 0
+            zero = torch.zeros((), dtype=dout.dtype, device=dout.device)
+            d_r = (torch.where(mask, dout, zero)
+                   + torch.where(mask, zero, dout) * torch.tensor(NEGATIVE_SLOPE, dtype=dout.dtype))
+        a = x if conv_bias is None else x + _channel_view(conv_bias.to(x.dtype), x)
         n, c = x.shape[:2]
-        # The layouts F.group_norm's autograd hands this backward: the
-        # input's channels-last on the CPU, NCHW on CUDA (whose backward
-        # takes no other).
         fmt = torch.contiguous_format
-        if x.device.type == "cpu" and x.is_contiguous(memory_format=_memory_format(x)):
-            fmt = _memory_format(x)
-        dx, dw, db = torch.ops.aten.native_group_norm_backward(
-            dy.float().contiguous(memory_format=fmt), x.float().contiguous(memory_format=fmt),
+        if a.device.type == "cpu" and a.is_contiguous(memory_format=_memory_format(a)):
+            fmt = _memory_format(a)
+        need_a = need_x or need_cb
+        da, dw, db = torch.ops.aten.native_group_norm_backward(
+            d_r.float().contiguous(memory_format=fmt), a.float().contiguous(memory_format=fmt),
             mean, rstd, weight, n, c, math.prod(x.shape[2:]), ctx.num_groups,
-            list(ctx.needs_input_grad[:3]))
-        return (dx.to(x.dtype) if dx is not None else None), dw, db, None, None
+            [need_a, need_w, need_b])
+        dx = dcb = None
+        if need_a:
+            dx = da.to(x.dtype)
+            if need_cb:
+                dims = [0] + list(range(2, x.dim()))
+                dcb = dx.sum(dims, keepdim=True).view(-1).to(conv_bias.dtype)
+        return ((dx if need_x else None), dw, db, dcb, (d_r if need_skip else None), None, None,
+                None, None)
+
+
+def group_norm_fused(x: torch.Tensor, num_groups: int, weight: torch.Tensor,
+                     bias: torch.Tensor, eps: float, conv_bias: Optional[torch.Tensor] = None,
+                     skip: Optional[torch.Tensor] = None, activate: bool = False) -> torch.Tensor:
+    """``leaky_relu_0.2([skip +] GroupNorm(x + conv_bias))`` in one call, each
+    rounding as the unfused ops make it: the kernel for a CUDA tensor (one
+    launch: the bias add, the residual add and the activation ride in its
+    passes), :func:`group_norm_fused_plain` for a CPU tensor; differentiable.
+    ``x``: the conv's output without its bias (bf16 or float32, channels-last
+    on the card); ``conv_bias``: float32 or bf16 [C], rounded to x's dtype
+    before the add; ``skip``: like x."""
+    keep = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (x, weight, bias, conv_bias, skip))
+    return _GroupNormFused.apply(x, weight, bias, conv_bias, skip, num_groups, eps, activate,
+                                 keep)
 
 
 def group_norm(x: torch.Tensor, num_groups: int, weight: torch.Tensor, bias: torch.Tensor,
                eps: float) -> torch.Tensor:
     """GroupNorm of bf16 or float32 ``x`` with float32 ``weight`` and
-    ``bias``: the kernel for a CUDA tensor (channels-last memory), the plain
-    version for a CPU tensor; differentiable."""
-    return _GroupNorm.apply(x, weight, bias, num_groups, eps)
+    ``bias``: :func:`group_norm_fused` with no conv bias, skip or
+    activation (the kernel for a CUDA tensor in channels-last memory, the
+    plain version for a CPU tensor); differentiable."""
+    return group_norm_fused(x, num_groups, weight, bias, eps)

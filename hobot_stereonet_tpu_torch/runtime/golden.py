@@ -26,6 +26,26 @@ def _nhwc(t: torch.Tensor) -> np.ndarray:
     return t.float().cpu().numpy()
 
 
+def _flax_output(module, args, kwargs, out):
+    """The output of the flax module of ``module``'s name.  A block hands
+    its conv's sum without the bias (``add_bias=False``) to its GroupNorm,
+    which returns the block's output; flax's conv returns the sum plus its
+    bias, and flax's GroupNorm the normalization alone, made here from the
+    same input with the module's unfused call."""
+    from ..models.layers import GroupNorm
+
+    def channel(t):
+        return t.view((1, -1) + (1,) * (args[0].dim() - 2))
+
+    if kwargs.get("add_bias") is False:
+        return out + channel(module.bias.to(out.dtype))
+    if isinstance(module, GroupNorm) and kwargs:
+        cb = kwargs.get("conv_bias")
+        x = args[0] if cb is None else args[0] + channel(cb.to(args[0].dtype))
+        return GroupNorm.forward(module, x)
+    return out
+
+
 def dump_pipeline(
     model,
     params: Optional[Mapping],
@@ -59,7 +79,8 @@ def dump_pipeline(
     def hook(name):
         key = "inter/" + name.replace(".", "/") + "/__call__[0]"
 
-        def store(_module, _inputs, out):
+        def store(module, args, kwargs, out):
+            out = _flax_output(module, args, kwargs, out)
             if isinstance(out, tuple):
                 for i, o in enumerate(out):
                     tensors[f"{key}[{i}]"] = _nhwc(o)
@@ -67,7 +88,7 @@ def dump_pipeline(
                 tensors[key] = _nhwc(out)
         return store
 
-    handles = [m.register_forward_hook(hook(name))
+    handles = [m.register_forward_hook(hook(name), with_kwargs=True)
                for name, m in model.named_modules() if name]
     try:
         with torch.inference_mode():

@@ -16,10 +16,12 @@ step of each network from its committed weights against JAX's stored step
 
 GroupNorm.  The flagship's device step (batch 8 of 128x256 crops, bf16, one
 batch kept on the card) with the port's GroupNorm and with ATen's
-``F.group_norm`` on float32 casts (as the port ran it before its kernel),
+``F.group_norm`` on float32 casts with the bias add, the residual add and
+LeakyReLU as separate ops (as the port ran them before its kernel),
 in turns (port, ATen, ATen, port, ...): steps/s over 10 steps; the device
-time of one profiled step of each; and one GroupNorm at that step's shape
-([16, 32, 16, 32] bf16), forward and forward + backward: the host's time
+time of one profiled step of each; and one residual block's GroupNorm at
+that step's shape ([16, 32, 16, 32] bf16, with the conv bias, the skip and
+LeakyReLU), forward and forward + backward: the host's time
 to issue a call (200 calls, no synchronization between them) and its
 device time (``torch.profiler``, 20 calls).
 
@@ -50,7 +52,7 @@ from hobot_stereonet_tpu_torch.config import Config, StereoNetConfig  # noqa: E4
 from hobot_stereonet_tpu_torch.data.loader import (BatchIterator,  # noqa: E402
                                                    SyntheticStereoDataset)
 from hobot_stereonet_tpu_torch.models import StereoNet, build_model  # noqa: E402
-from hobot_stereonet_tpu_torch.models.layers import GroupNorm  # noqa: E402
+from hobot_stereonet_tpu_torch.models.layers import GroupNorm, leaky_relu  # noqa: E402
 from hobot_stereonet_tpu_torch.ops import preprocess as pp  # noqa: E402
 from hobot_stereonet_tpu_torch.runtime import training  # noqa: E402
 from hobot_stereonet_tpu_torch.runtime.evaluate import evaluate_dataset  # noqa: E402
@@ -84,13 +86,22 @@ def tf32(on: bool):
          torch.backends.cuda.matmul.allow_tf32) = saved
 
 
+def _aten_forward(self, x, conv_bias=None, skip=None, activate=False):
+    """The blocks' GroupNorm as ATen and separate ops compute it: the bias
+    add, ``F.group_norm`` on float32 casts, the residual add, LeakyReLU."""
+    if conv_bias is not None:
+        x = x + conv_bias.to(x.dtype).view((1, -1) + (1,) * (x.dim() - 2))
+    r = F.group_norm(x.float(), self.num_groups, self.weight, self.bias, self.eps).to(x.dtype)
+    r = r if skip is None else skip + r
+    return leaky_relu(r) if activate else r
+
+
 @contextlib.contextmanager
 def aten_group_norm(on: bool):
-    """``GroupNorm.forward`` as ``F.group_norm`` on float32 casts (``on``)."""
+    """``GroupNorm.forward`` as ATen and separate ops (``on``)."""
     saved = GroupNorm.forward
     if on:
-        GroupNorm.forward = lambda self, x: F.group_norm(
-            x.float(), self.num_groups, self.weight, self.bias, self.eps).to(x.dtype)
+        GroupNorm.forward = _aten_forward
     try:
         yield
     finally:
@@ -184,11 +195,13 @@ def group_norm_ab(turns: int, log: Path) -> None:
     x = torch.randn((2 * BATCH, 32) + tuple(c // 8 for c in CROP), device=DEV).bfloat16()
     x = x.contiguous(memory_format=torch.channels_last).requires_grad_(True)
     dy = torch.randn_like(x)
+    cb, sk = torch.randn(32, device=DEV), torch.randn_like(x).detach()
+    kw = dict(conv_bias=cb, skip=sk, activate=True)
     for label in ("port", "ATen"):
         out = {}
         with aten_group_norm(label == "ATen"):
-            for what, fn in (("forward", lambda: gn(x.detach())),
-                             ("forward+backward", lambda: gn(x).backward(dy))):
+            for what, fn in (("forward", lambda: gn(x.detach(), **kw)),
+                             ("forward+backward", lambda: gn(x, **kw).backward(dy))):
                 for _ in range(10):
                     fn()
                 torch.cuda.synchronize()
@@ -202,7 +215,8 @@ def group_norm_ab(turns: int, log: Path) -> None:
                         fn()
                     torch.cuda.synchronize()
                 out[what] = dict(host_issue_us=issue_us, device_us=device_ms(prof) / 20 * 1e3)
-        emit(what=f"one GroupNorm [16, 32, 16, 32] bf16, {label}", **out)
+        emit(what=f"one ResBlock GroupNorm (bias, skip, LeakyReLU) [16, 32, 16, 32] bf16, "
+                  f"{label}", **out)
 
 
 def main() -> int:

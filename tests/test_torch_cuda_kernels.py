@@ -703,3 +703,148 @@ def test_group_norm_gradients_on_the_card(device):
         grads.append([t.cpu() for t in (xi.grad, gn.weight.grad, gn.bias.grad)])
     for got, want in zip(*grads):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * want.abs().max().item())
+
+
+# ---------------------------------------------------------------------------
+# GroupNorm: the fused entry and the scan's fallbacks, bit for bit
+# ---------------------------------------------------------------------------
+
+FUSED_CASES = [  # (N, C, spatial, dtype, conv bias dtype or None, skip, activate)
+    (2, 32, (45, 80), torch.bfloat16, torch.float32, False, True),
+    (2, 32, (45, 80), torch.bfloat16, torch.float32, True, True),
+    (3, 12, (31, 33), torch.bfloat16, torch.bfloat16, True, True),
+    (2, 16, (4, 18, 34), torch.bfloat16, torch.float32, False, True),
+    (2, 64, (30, 40), torch.bfloat16, None, True, True),
+    (2, 32, (30, 40), torch.float32, torch.float32, True, True),
+    (3, 12, (31, 33), torch.float32, torch.float32, False, True),
+    (2, 32, (30, 40), torch.bfloat16, torch.float32, True, False),
+]
+
+
+def _fused_case(n, c, spatial, dtype, bias_dtype, skip, seed=0):
+    x, g, w, b = _gn_case(n, c, spatial, dtype, seed)
+    rng = np.random.default_rng(seed + 100)
+    cb = (torch.from_numpy(rng.uniform(-2, 2, c).astype(np.float32)).to(bias_dtype)
+          if bias_dtype is not None else None)
+    sk = None
+    if skip:
+        sk = torch.from_numpy(rng.standard_normal(x.shape).astype(np.float32)).to(dtype)
+        sk = sk.contiguous(memory_format=torch.channels_last_3d if len(spatial) == 3
+                           else torch.channels_last)
+    return x - 5, g, w, b, cb, sk
+
+
+@pytest.mark.parametrize("n,c,spatial,dtype,bias_dtype,skip,activate", FUSED_CASES)
+def test_group_norm_fused_kernel_equals_plain(device, n, c, spatial, dtype, bias_dtype, skip,
+                                              activate):
+    from hobot_stereonet_tpu_torch.ops.kernels.group_norm import (
+        group_norm_fused, group_norm_fused_plain)
+
+    x, g, w, b, cb, sk = _fused_case(n, c, spatial, dtype, bias_dtype, skip)
+    n0 = build.launch_counts["group_norm"]
+    with torch.inference_mode():
+        got = group_norm_fused(x.to(device), g, w.to(device), b.to(device), 1e-6,
+                               conv_bias=None if cb is None else cb.to(device),
+                               skip=None if sk is None else sk.to(device), activate=activate)
+    torch.cuda.synchronize()
+    assert build.launch_counts["group_norm"] == n0 + 1
+    want = group_norm_fused_plain(x, g, w, b, 1e-6, cb, sk, activate)[0]
+    assert got.dtype == dtype and got.stride() == x.stride()
+    assert torch.equal(got.cpu(), want), float((got.cpu() != want).float().mean())
+
+
+@pytest.mark.parametrize("sequential", [False, True])
+@pytest.mark.parametrize("n,c,spatial,dtype,bias_dtype,skip,activate", FUSED_CASES + [
+    (40, 32, (12, 20), torch.bfloat16, torch.float32, True, True),     # N * C past the
+    (96, 12, (9, 11), torch.float32, torch.float32, False, True)])     # threshold
+def test_group_norm_scan_and_walk_in_order_equal_plain(device, sequential, n, c, spatial, dtype,
+                                                       bias_dtype, skip, activate):
+    """The statistics by the scan and by the walk in order, whichever one
+    N * C would choose: output, mean and rstd bit for bit the plain
+    version's."""
+    from hobot_stereonet_tpu_torch.ops.kernels import group_norm as kg
+
+    x, g, w, b, cb, sk = _fused_case(n, c, spatial, dtype, bias_dtype, skip)
+    got = kg._launch(x.to(device), g, w.to(device), b.to(device), 1e-6,
+                     None if cb is None else cb.to(device), None if sk is None else sk.to(device),
+                     activate, sequential=sequential)[:3]
+    torch.cuda.synchronize()
+    want, _, mean, rstd = kg.group_norm_fused_plain(x, g, w, b, 1e-6, cb, sk, activate)
+    for t, u in zip(got, (want, mean, rstd)):
+        assert torch.equal(t.cpu(), u), float((t.cpu() != u).float().mean())
+
+
+@pytest.mark.parametrize("kind", ["walk", "ties", "octaves", "tiny", "huge", "nan", "zeros"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_group_norm_scan_fallbacks_exact(device, kind, dtype):
+    """Data that sends the scan down its fallbacks: sums that wander about
+    zero, ties at every step, values over 16 octaves, sums below and above
+    the binades it keys, NaN, all zeros; output and statistics bit for bit."""
+    from hobot_stereonet_tpu_torch.ops.kernels import group_norm as kg
+
+    rng = np.random.default_rng(11)
+    shape = (2, 12, 96, 160)
+    a = {"walk": lambda: rng.standard_normal(shape),
+         "ties": lambda: rng.integers(-300, 301, shape) * 0.5,
+         "octaves": lambda: rng.standard_normal(shape) * 2.0 ** rng.integers(-8, 8, shape),
+         "tiny": lambda: rng.standard_normal(shape) * 1e-30,
+         "huge": lambda: rng.standard_normal(shape) * 1e25,
+         "nan": lambda: np.where(rng.random(shape) < 1e-5, np.nan, rng.standard_normal(shape)),
+         "zeros": lambda: np.zeros(shape)}[kind]()
+    x = torch.from_numpy(a.astype(np.float32)).to(dtype).contiguous(
+        memory_format=torch.channels_last)
+    w = torch.ones(12)
+    b = torch.zeros(12)
+    got, mean, rstd = kg._group_norm_cuda(x.to(device), 4, w.to(device), b.to(device), 1e-6)
+    torch.cuda.synchronize()
+    want, w_mean, w_rstd = kg.group_norm_plain(x, 4, w, b, 1e-6)
+    for t, u in ((mean.cpu(), w_mean), (rstd.cpu(), w_rstd), (got.cpu(), want)):
+        t, u = t.float().numpy(), u.float().numpy()       # NaN payloads differ by device
+        assert np.array_equal(np.isnan(t), np.isnan(u))
+        assert np.array_equal(np.where(np.isnan(t), 0, t).view(np.int32),
+                              np.where(np.isnan(u), 0, u).view(np.int32))
+
+
+def test_group_norm_scan_at_full_resolution(device):
+    """One 720p sample, 12 channels, mean near zero (the s1 chains wander):
+    many windows of segments and fallbacks; bit for bit the plain version."""
+    from hobot_stereonet_tpu_torch.ops.kernels import group_norm as kg
+
+    x, g, w, b = _gn_case(1, 12, (720, 1280), torch.bfloat16, seed=3)
+    x = (x - 5).contiguous(memory_format=torch.channels_last)
+    got, mean, rstd = kg._group_norm_cuda(x.to(device), g, w.to(device), b.to(device), 1e-6)
+    torch.cuda.synchronize()
+    want, w_mean, w_rstd = kg.group_norm_plain(x, g, w, b, 1e-6)
+    assert torch.equal(mean.cpu(), w_mean) and torch.equal(rstd.cpu(), w_rstd)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("skip", [False, True])
+def test_group_norm_fused_gradients_on_the_card(device, dtype, skip):
+    """The fused entry's backward on the card against the unfused ops'
+    autograd on the CPU (ATen's GroupNorm backward on both, its sums in
+    other orders on the two devices: 1e-5 in float32; bf16 to one bf16 step
+    of the largest magnitude)."""
+    from hobot_stereonet_tpu_torch.ops.kernels.group_norm import (
+        group_norm, group_norm_fused, leaky_relu)
+
+    x, g, w, b, cb, sk = _fused_case(2, 32, (24, 40), dtype, torch.float32, skip, seed=4)
+    dy = torch.from_numpy(np.random.default_rng(5).standard_normal(x.shape).astype(np.float32))
+    dy = dy.to(dtype).contiguous(memory_format=torch.channels_last)
+    grads = []
+    for dev, fused in ((device, True), (torch.device("cpu"), False)):
+        leaves = [t.to(dev).requires_grad_(True) for t in (x, w, b, cb)]
+        sk_d = sk.to(dev).requires_grad_(True) if skip else None
+        xi, wi, bi, cbi = leaves
+        if fused:
+            out = group_norm_fused(xi, g, wi, bi, 1e-6, conv_bias=cbi, skip=sk_d, activate=True)
+        else:
+            h = group_norm(xi + cbi.to(dtype).view(1, -1, 1, 1), g, wi, bi, 1e-6)
+            out = leaky_relu(h if sk_d is None else sk_d + h)
+        out.backward(dy.to(dev))
+        grads.append([t.grad.cpu().float() for t in leaves + ([sk_d] if skip else [])])
+    for got, want in zip(*grads):
+        tol = (1e-5 if dtype == torch.float32 else 2 ** -7) * want.abs().max().item()
+        torch.testing.assert_close(got, want, rtol=1e-5 if dtype == torch.float32 else 2 ** -7,
+                                   atol=tol)
