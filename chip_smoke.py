@@ -22,12 +22,13 @@ Phases, each printed with its elapsed seconds:
      largest bucket), and their times beside their bounds; then the
      GroupNorm kernel against its plain version, bit for bit, at every
      (channels, spatial size) the two networks run at 720p (found by hooks
-     on a forward of each), at batches 1, 8 and 32 in bf16 and in
-     float32, through its plain entry and its fused one (conv bias,
-     skip and LeakyReLU; conv bias alone; the int8 blocks' form, skip and
-     no bias), the plain entry and the first fused form also in the mode
-     the launch does not choose (scan or walk in order, from N * C): each
-     time beside its byte bound, ATen's ``F.group_norm`` on
+     on a forward of each), at batches 1, 8 and 32 in bf16 and in float32
+     (checked, not timed: no serving path runs it), through its plain entry
+     and its fused one (conv bias, skip and LeakyReLU; conv bias alone; the
+     int8 blocks' form, skip and no bias), the plain entry and the first
+     fused form also in the mode the launch does not choose (scan or walk in
+     order, from N * C; checked, not timed): each bf16 time beside its byte
+     bound, ATen's ``F.group_norm`` on
      the same input with the float32 casts (the library call, never called
      by the port) and the unfused sequence the blocks ran before (bias add,
      the plain entry, residual add, LeakyReLU);
@@ -100,6 +101,23 @@ Phases, each printed with its elapsed seconds:
      32; each conv's time at a chunk of 8, the 3-D conv in NCDHW against
      ``channels_last_3d``, and a 12-channel conv against the same padded to
      16 channels.
+ 11b. CLASSIC in int8 (``ops/quant.py``, ``ops/int8_gemm.py``): how many of
+     its 53 convs take the int8 kernel (32, six of them zero padded) and how
+     many the library route (21: im2col, ``torch._int_mm`` and the
+     ``int8_epilogue`` kernel); each conv shape at a chunk of 8 at 720p
+     through its route (``Int8Conv.on_card``) against the plain version,
+     bit for bit in both schemes, timed beside its int8 bound, the plain
+     version and cuDNN's bf16 conv of the shape, and at each library shape
+     the epilogue kernel against its plain version, timed beside its byte
+     bound; both schemes (dynamic, and
+     ``reference/classic_calib.json``) on the two stored scenes and the 720p
+     frame against JAX's int8 outputs (``classic_int8_outputs.npz``, to the
+     CPU tests' bounds); the held-out EPE over the 120 scenes paired against
+     the stored JAX int8 EPEs (|mean difference| <= 0.01 px); the int8
+     engines (``device_microbatch=8``) serving 32 frames at 720p, streamed
+     == synchronous, with the kernels' launches and the library route's
+     calls counted, and the int8 convs' calls by shape (hooks, held to
+     those counts); ``measure_engine_fps`` at batches 1 and 32.
 
  12. training (``runtime/training.py``, ``train_loop.py``): the three backward
      kernels (``hst_correlation_backward``, ``hst_soft_argmin_backward``,
@@ -118,8 +136,20 @@ Phases, each printed with its elapsed seconds:
      its steps/s, the device step's own steps/s and one profiled step; the
      saved checkpoint served by ``StereoEngine`` on 8 frames at 720p; 10
      steps of CLASSIC (RGB), which launch the D-leading backward.
+ 13. the command line: ``python3 -m hobot_stereonet_tpu_torch.cli`` in
+     processes of their own, several at once, each exiting 0 with its JSON
+     line: ``infer --input-bin`` and ``infer`` on raw ``.nv12`` frames at
+     720p, each against the same engine call in this process; ``eval
+     --dataset layered --frames 8 --check-determinism`` of the flagship in
+     bf16, with ``--int8-calib``, and of CLASSIC ``--int8``; ``calibrate`` of
+     CLASSIC, then ``eval --int8-calib`` of that file; ``bench
+     --streaming`` (alone, after the others); ``stream --frames 64 --unpaced
+     --ring`` (started first: its frames render on the host for about a
+     second each), whose frames must ride the natively built host ring
+     (``build/hostio``); ``dump`` twice and ``compare`` where
+     :data:`CARD_HAS_PIL`.
 
-Phases 5, 7, 8, 10, 11 and 12 reset the kernels' launch counts just before they
+Phases 5, 7, 8, 10, 11, 11b and 12 reset the kernels' launch counts just before they
 drive their path and fail if a kernel of it was not launched (the GroupNorm
 on every network's path, as many times a forward as the network has
 GroupNorms).  The held-out scenes are rendered on a host thread from the
@@ -128,7 +158,9 @@ start, beside phases 2-6.
 Before the last line it prints one JSON object with each kernel's launches,
 error, times and bound at each batch (a GroupNorm row's launches: the calls
 at its very shape in the serving runs of phases 5 and 11, counted by hooks
-on the engines' networks and held to the wrapper's count); the last line is
+on the engines' networks and held to the wrapper's count), and, under
+``library``, each CLASSIC shape of the int8 library route (not a kernel)
+with its calls, error, times and bound; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero; a watchdog
 dumps every thread's stack and exits if the run hangs.  Imports torch,
 numpy and the port only.
@@ -186,6 +218,20 @@ GN_BATCHES = (1, 8, 32)         # batches of the GroupNorm phase
 BWD_SHAPES = ((8, H // 8, W // 8), (32, H // 8, W // 8), (8, 16, 32))
 TRAIN_STEPS, CLASSIC_TRAIN_STEPS, TRAIN_BATCH, TRAIN_CROP = 30, 10, 8, (128, 256)
 INT8_PATH = BF16_PATH + ("int8_conv",)
+CLASSIC_INT8_PATH = CLASSIC_PATH + ("int8_conv", "int8_epilogue")
+# CLASSIC's 53 int8 convs by route: the kernel (the 2-D undilated ones, Cout
+# 1 and 12 and Cin 12 zero padded), the library route (3-D and dilated).
+CLASSIC_INT8_ROUTES = (32, 21)
+# CLASSIC int8 on the card against JAX's int8 output (the CPU tests' bounds,
+# tests/test_torch_classic_int8.py: JAX's own int8 CLASSIC moves that far when
+# 1 % or 10 % of its input moves by one ulp, up to 19.6 px at a pixel).
+CLASSIC_INT8_MEDIAN_PX, CLASSIC_INT8_OVER_1PX, CLASSIC_INT8_MAX_PX = 0.15, 0.015, 16.0
+# Whether the card's Python has PIL (it has, on the H100 machine this script
+# targets; fixed here rather than by a caught import): the commands that read
+# or write PNG files run only then.
+CARD_HAS_PIL = True
+# A command's disparity statistics against the same engine call in this process.
+CLI_ENGINE_PX = 1e-3
 
 
 def phase(msg: str) -> None:
@@ -467,11 +513,12 @@ def group_norm_phase(dev, census, flush, card) -> list:
     mean and rstd), at every shape of ``census`` and batch of
     :data:`GN_BATCHES`, through both entries: the plain GroupNorm, and the
     fused one with the conv bias, the skip and the LeakyReLU (and its
-    int8 form, without the bias, and without the skip), in bf16 and float32.
-    Times beside the byte bound (inputs read once, outputs written once),
-    ATen's ``F.group_norm`` with the float32 casts, and the unfused sequence
-    the blocks ran before (bias add, the plain entry, residual add,
-    LeakyReLU)."""
+    int8 form, without the bias, and without the skip), in bf16 and
+    float32, in the mode the launch chooses and in the other.  The bf16
+    cases timed beside the byte bound (inputs read once, outputs written
+    once), ATen's ``F.group_norm`` with the float32 casts, and the unfused
+    sequence the blocks ran before (bias add, the plain entry, residual
+    add, LeakyReLU)."""
     import torch
     import torch.nn.functional as F
 
@@ -490,8 +537,8 @@ def group_norm_phase(dev, census, flush, card) -> list:
         cb = torch.rand(c, device=dev, generator=gen) * 4 - 2
         fmt = torch.channels_last_3d if len(spatial) == 3 else torch.channels_last
         view = (1, -1) + (1,) * len(spatial)
-        for dtype in (torch.bfloat16, torch.float32):
-            tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        # float32 runs on no serving path: its cases are checked, not timed.
+        for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
             for b in GN_BATCHES:
                 n = mult * b
                 x = (torch.randn((n, c) + spatial, device=dev, generator=gen) * 3 + 1).to(dtype)
@@ -543,13 +590,16 @@ def group_norm_phase(dev, census, flush, card) -> list:
                 err = max((got[0].float() - exp[0].float()).abs().max().item()
                           for got, exp in checks.values())
                 del want, want_a, checks
+                shape = f"{n}x{c}x{'x'.join(map(str, spatial))}"
+                if dtype == torch.float32:
+                    phase(f"kernel group_norm [{shape}] f32 B={b}: exact, plain entry and fused "
+                          f"(bias + skip, bias, no bias + skip), {mode} and {other} (not timed)")
+                    del x, sk, a
+                    continue
                 elems = x.numel()
                 esize = x.element_size()
                 iters = 10 if elems > 2e8 else 30
                 ms = median_ms(lambda: kg.group_norm(x, g, w, bias, GN_EPS), flush, iters=iters)
-                other_ms = median_ms(lambda: kg._launch(x, g, w, bias, GN_EPS, None, None, False,
-                                                        sequential=not in_order), flush,
-                                     iters=iters)
                 fused_ms = median_ms(lambda: kg.group_norm_fused(
                     x, g, w, bias, GN_EPS, conv_bias=cb, skip=sk, activate=True), flush,
                     iters=iters)
@@ -564,14 +614,13 @@ def group_norm_phase(dev, census, flush, card) -> list:
                 kg._launch(x, g, w, bias, GN_EPS, cb, sk, True, clock=clock)
                 clock = clock.tolist()
                 phases_us = [round((b_ - a_) / 1e3, 1) for a_, b_ in zip(clock[:6], clock[1:7])]
-                shape = f"{n}x{c}x{'x'.join(map(str, spatial))}"
-                # Launch counts by shape and form (group_norm_shapes); float32 runs on no path.
-                key = (n, c, spatial) if dtype == torch.bfloat16 else (n, c, spatial, tag)
+                # Launch counts by shape and form (group_norm_shapes).
+                key = (n, c, spatial)
                 common = dict(name=kg.NAME, shape=shape, batch=b, per_forward=per_net,
                               tolerance="exact (output, mean, rstd)", max_abs_err=err,
                               plain_ms=plain_ms, **src)
                 rows.append(dict(common, mode=f"plain entry, {tag}, {mode}", ms=ms,
-                                 library_ms=lib_ms, key=key + ("plain",), other_mode_ms=other_ms,
+                                 library_ms=lib_ms, key=key + ("plain",),
                                  bound=bound(2.0 * esize * elems, 8.0 * elems)))
                 rows.append(dict(common, mode=f"fused bias + skip + LeakyReLU, {tag}, {mode}",
                                  ms=fused_ms, library_ms=None, unfused_ms=seq_ms,
@@ -584,8 +633,8 @@ def group_norm_phase(dev, census, flush, card) -> list:
                 phase(f"kernel group_norm [{shape}] {tag} (per forward {per_net}) B={b}: exact, "
                       f"plain entry and fused (bias + skip, bias, no bias + skip), {mode} and "
                       f"{other}; plain entry {ms:.4f} ms (bound {r0['bound'][0]:.4f}, "
-                      f"{100 * r0['bound'][0] / ms:.0f}%), the same by {other} {other_ms:.4f} "
-                      f"ms, ATen F.group_norm with the float32 casts {lib_ms:.4f} ms (kernel / "
+                      f"{100 * r0['bound'][0] / ms:.0f}%), ATen F.group_norm with the float32 "
+                      f"casts {lib_ms:.4f} ms (kernel / "
                       f"ATen {ms / lib_ms:.3f}); fused with skip {fused_ms:.4f} ms (bound "
                       f"{r1['bound'][0]:.4f}, {100 * r1['bound'][0] / fused_ms:.0f}%), the "
                       f"unfused sequence {seq_ms:.4f} ms; fused without skip "
@@ -595,7 +644,7 @@ def group_norm_phase(dev, census, flush, card) -> list:
                       f"walk, statistics, output) {phases_us} us, {clock[7]} windows and "
                       f"{clock[8]} segments stepped alone in its ordered walk; {card}")
                 del x, sk, a
-            torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -1236,6 +1285,339 @@ def classic_phase(ctx: dict) -> tuple:
     return rows, launches
 
 
+def int8_conv_key(mod, x) -> tuple:
+    """An int8 conv call's shape: (route, input shape, weight shape, stride,
+    dilation)."""
+    return (mod.route, tuple(x.shape), tuple(mod.q_weight.shape), mod.stride, mod.dilation)
+
+
+@contextlib.contextmanager
+def int8_conv_calls(model, counts: dict):
+    """While open, count ``model``'s int8 conv calls in ``counts`` by
+    :func:`int8_conv_key`."""
+    from hobot_stereonet_tpu_torch.ops.quant import Int8Conv
+
+    def hook(mod, args):
+        key = int8_conv_key(mod, args[0])
+        counts[key] = counts.get(key, 0) + 1
+
+    hooks = [m.register_forward_pre_hook(hook) for m in model.modules()
+             if isinstance(m, Int8Conv)]
+    try:
+        yield counts
+    finally:
+        for hk in hooks:
+            hk.remove()
+
+
+def classic_int8_convs(net, dev) -> list:
+    """Every int8 conv of a quantized CLASSIC (``net`` on the card) with the
+    input it gets at a chunk of 8 frames at 720p, one per distinct
+    :func:`int8_conv_key`: [(label, module, input, count, key)]."""
+    import torch
+
+    from hobot_stereonet_tpu_torch.ops.quant import Int8Conv
+
+    seen: dict = {}
+
+    def hook(name):
+        def rec(mod, args):
+            x = args[0]
+            key = int8_conv_key(mod, x)
+            if key in seen:
+                seen[key][3] += 1
+            else:
+                seen[key] = [name, mod, x.clone(memory_format=torch.preserve_format), 1, key]
+        return rec
+
+    hooks = [m.register_forward_pre_hook(hook(n)) for n, m in net.named_modules()
+             if isinstance(m, Int8Conv)]
+    frames = torch.rand((8, H, W, 3), device=dev) * 2 - 1
+    try:
+        with torch.inference_mode():
+            net(frames, torch.roll(frames, -3, 2))
+    finally:
+        for hk in hooks:
+            hk.remove()
+    return list(seen.values())
+
+
+def classic_int8_conv_rows(net, dev, flush, card) -> tuple:
+    """Each CLASSIC int8 conv shape at a chunk of 8 at 720p, through its
+    route on the card (the int8 kernel or the library route), against the
+    plain version bit for bit in both schemes (the static one with the
+    module's calibrated scale, the dynamic one with the input's per-sample
+    scales); the static call timed beside its int8 bound, the plain
+    version and cuDNN's bf16 conv of the same shape.  At each library
+    shape also the epilogue kernel (``int8_epilogue``) on the static
+    product, against its plain version with the calibrated scale and with
+    per-sample ones, timed beside its byte bound.  Returns (kernel rows,
+    library rows, epilogue rows), each keyed by :func:`int8_conv_key`."""
+    import torch
+    import torch.nn.functional as F
+
+    from hobot_stereonet_tpu_torch.ops import quant
+    from hobot_stereonet_tpu_torch.ops.kernels import int8_conv as k8
+
+    kernel_rows, library_rows, epilogue_rows = [], [], []
+    for name, mod, x, count, key in classic_int8_convs(net, dev):
+        q_w, s_k, b = mod.q_weight, mod.weight_scale, mod.bias
+        kw = dict(stride=mod.stride, divide=False, out_dtype=torch.bfloat16)
+        s_dyn = quant.activation_scale(x)
+        def call(sx, qs, divide):
+            return mod.on_card(x, sx, qs, divide=divide)
+
+        err = 0.0
+        for sx, qs, divide in ((mod.act_scale, mod.act_mult, False), (s_dyn, s_dyn, True)):
+            got = call(sx, qs, divide)
+            want = k8.int8_conv_plain(x, q_w, s_k, b, sx, qs, dilation=mod.dilation,
+                                      **dict(kw, divide=divide))
+            torch.cuda.synchronize()
+            err = max(err, (got.float() - want.float()).abs().max().item())
+            if not torch.equal(got, want):
+                raise AssertionError(f"classic int8 {name} ({mod.route}) {tuple(x.shape)} "
+                                     f"divide={divide} differs from the plain version: max "
+                                     f"|err| {err}")
+            del got, want
+        out_shape = tuple(call(mod.act_scale, mod.act_mult, False).shape)
+        ms = median_ms(lambda: call(mod.act_scale, mod.act_mult, False), flush, iters=10)
+        plain_ms = median_ms(lambda: k8.int8_conv_plain(
+            x, q_w, s_k, b, mod.act_scale, mod.act_mult, dilation=mod.dilation, **kw), flush,
+            iters=1, warmup=1)
+        wt = q_w.to(torch.bfloat16).contiguous(memory_format=k8.memory_format(q_w.dim()))
+        pads = [k8.same_pads(s, k, mod.stride, mod.dilation)
+                for s, k in zip(x.shape[2:], q_w.shape[2:])]
+        conv = F.conv3d if x.dim() == 5 else F.conv2d
+        x16 = F.pad(x.bfloat16(), [p for lo_hi in reversed(pads) for p in lo_hi])
+        cudnn_ms = median_ms(lambda: conv(x16, wt, None, mod.stride, 0, mod.dilation), flush,
+                             iters=10)
+        k_red = q_w[0].numel()
+        n_out = torch.Size(out_shape).numel()
+        padded = mod.route == "kernel" and mod.channels != tuple(q_w.shape[1::-1])
+        note = f" (padded to {mod.channels[0]} -> {mod.channels[1]})" if padded else ""
+        row = dict(shape=f"{name} {list(x.shape)} -> {mod.q_weight.shape[0]}"
+                         f"{f' dilation {mod.dilation}' if mod.dilation > 1 else ''}{note}",
+                   convs=count, batch=8, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   tolerance="exact", cudnn_bf16_ms=cudnn_ms, library_ms=None,
+                   launch_key=key,
+                   bound=bound(x.numel() * x.element_size() + q_w.numel() + 2 * n_out,
+                               2.0 * n_out * k_red, INT8_OPS))
+        (library_rows if mod.route == "library" else kernel_rows).append(row)
+        phase(f"classic int8 conv ({mod.route}) {row['shape']} (x{count}): exact in both "
+              f"schemes; {ms:.4f} ms, bound {row['bound'][0]:.4f} ms ({row['bound'][1]}, "
+              f"{100 * row['bound'][0] / ms:.0f}% of it), plain {plain_ms:.1f} ms, cuDNN bf16 "
+              f"conv of the shape {cudnn_ms:.4f} ms; {card}")
+        del x16, wt
+        if mod.route == "library":
+            epilogue_rows.append(epilogue_row(row, mod, x, s_dyn, flush, card))
+        del x
+    torch.cuda.empty_cache()
+    for label, rows in (("kernel", kernel_rows), ("library route", library_rows)):
+        total = sum(r["ms"] * r["convs"] for r in rows)
+        limit = sum(r["bound"][0] * r["convs"] for r in rows)
+        cudnn = sum(r["cudnn_bf16_ms"] * r["convs"] for r in rows)
+        phase(f"classic int8 convs by the {label}: {sum(r['convs'] for r in rows)} convs, "
+              f"{len(rows)} shapes; a chunk of 8: {total:.3f} ms (bound {limit:.3f} ms, "
+              f"{100 * limit / total:.0f}% of it; cuDNN bf16 {cudnn:.3f} ms); {card}")
+    return kernel_rows, library_rows, epilogue_rows
+
+
+def epilogue_row(conv_row: dict, mod, x, s_dyn, flush, card) -> dict:
+    """The library route's epilogue kernel at one conv shape: on the
+    route's int32 product in the static scheme, bit for bit against its
+    plain version (``epilogue``, float64 with TwoSum) with the calibrated
+    scale and with the per-sample ones ``s_dyn``; timed beside its byte
+    bound (the int32 values read once, the bf16 outputs written once)."""
+    import torch
+
+    from hobot_stereonet_tpu_torch.ops import int8_gemm
+    from hobot_stereonet_tpu_torch.ops.kernels import int8_conv as k8
+
+    acc, m, _ = int8_gemm.int8_product(x, mod.q_weight, mod.packed_weight, mod.act_mult,
+                                       stride=mod.stride, dilation=mod.dilation, divide=False)
+    cout, per = mod.q_weight.shape[0], m // x.shape[0]
+    s_k, b = mod.weight_scale, mod.bias
+
+    def kernel(sx):
+        return k8.int8_epilogue(acc, m, cout, per, sx, s_k, b, torch.bfloat16)
+
+    def plain(sx):
+        return k8.epilogue(acc[:m, :cout].float().view(-1, per, cout), sx, s_k, b, 2,
+                           torch.bfloat16).view(m, cout)
+
+    for sx in (mod.act_scale, s_dyn):
+        got, want = kernel(sx), plain(sx)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"int8_epilogue {conv_row['shape']}: differs from its plain "
+                                 f"version by {(got.float() - want.float()).abs().max().item()}")
+        del got, want
+    ms = median_ms(lambda: kernel(mod.act_scale), flush, iters=10)
+    plain_ms = median_ms(lambda: plain(mod.act_scale), flush, iters=1, warmup=1)
+    row = dict(shape=f"{conv_row['shape']}: [{m}, {acc.shape[1]}] int32 -> [{m}, {cout}] bf16",
+               convs=conv_row["convs"], batch=8, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+               tolerance="exact", library_ms=None, launch_key=conv_row["launch_key"],
+               bound=bound(m * cout * (4.0 + 2.0), 3.0 * m * cout))
+    phase(f"kernel int8_epilogue [{row['shape']}] (x{row['convs']}): exact with the calibrated "
+          f"and per-sample scales; {ms:.4f} ms, bound {row['bound'][0]:.4f} ms "
+          f"({row['bound'][1]}, {100 * row['bound'][0] / ms:.0f}% of it), plain {plain_ms:.2f} "
+          f"ms; {card}")
+    return row
+
+
+def check_int8_spread(tag: str, st: dict) -> None:
+    ok = (st["median"] <= CLASSIC_INT8_MEDIAN_PX and st["over_1px"] <= CLASSIC_INT8_OVER_1PX
+          * st["n"] and st["max"] <= CLASSIC_INT8_MAX_PX)
+    if not ok:
+        raise AssertionError(f"{tag}: {st} beyond median {CLASSIC_INT8_MEDIAN_PX} px, "
+                             f"{CLASSIC_INT8_OVER_1PX:.1%} over 1 px, max "
+                             f"{CLASSIC_INT8_MAX_PX} px")
+
+
+def classic_int8_phase(ctx: dict) -> tuple:
+    """Phase 11b, CLASSIC in int8; returns (int8 kernel rows, library rows,
+    epilogue kernel rows, {(kernel, scheme): launches on the int8 engines'
+    paths}, the library route's calls on them by scheme, and their int8
+    conv calls by scheme and :func:`int8_conv_key`)."""
+    import numpy as np
+    import torch
+
+    from hobot_stereonet_tpu_torch import reference
+    from hobot_stereonet_tpu_torch.config import Config, StereoNetConfig
+    from hobot_stereonet_tpu_torch.models import StereoNet
+    from hobot_stereonet_tpu_torch.ops import int8_gemm, quant
+    from hobot_stereonet_tpu_torch.ops import preprocess as pp
+    from hobot_stereonet_tpu_torch.runtime.benchmark import measure_engine_fps
+    from hobot_stereonet_tpu_torch.runtime.engine import StereoEngine
+    from hobot_stereonet_tpu_torch.runtime.evaluate import evaluate_dataset
+    from hobot_stereonet_tpu_torch.runtime.weights import from_flax_params
+
+    dev, card, rng, heldout = ctx["dev"], ctx["card"], ctx["rng"], ctx["heldout"]
+    params = reference.load_params(reference.CLASSIC_PARAMS_NPZ)
+    stored = reference.load_outputs(reference.CLASSIC_INT8_OUTPUTS_NPZ)
+    calib = str(reference.CLASSIC_CALIB_JSON)
+    schemes = {"dynamic": dict(int8=True), "static": dict(static_quant=calib)}
+    mcfg = StereoNetConfig()
+    rgb = Config().preprocess
+
+    def net(**kw):
+        m = StereoNet(mcfg, device=dev)
+        m.load_state_dict(from_flax_params(params, mcfg, "classic"))
+        return quant.serving_model(m, **kw)
+
+    # The routes, and each conv shape through its route against the plain version.
+    t = time.monotonic()
+    static_net = net(**schemes["static"])
+    routes = quant.routes(static_net)
+    by_route = {r: sorted(k for k, v in routes.items() if v == r) for r in ("kernel", "library")}
+    phase(f"classic int8: {len(routes)} convs, {len(by_route['kernel'])} through the int8 kernel "
+          f"and {len(by_route['library'])} through the library route (im2col + torch._int_mm); "
+          f"library: {by_route['library']}")
+    if (len(by_route["kernel"]), len(by_route["library"])) != CLASSIC_INT8_ROUTES:
+        raise AssertionError(f"classic int8 routes: {by_route}")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    kernel_rows, library_rows, epilogue_rows = classic_int8_conv_rows(static_net, dev, flush,
+                                                                       card)
+    del flush, static_net
+    phase(f"classic int8: conv shapes checked and timed ({time.monotonic() - t:.1f} s)")
+
+    # The two stored scenes and the 720p frame against JAX's int8 outputs.
+    t = time.monotonic()
+    scenes = [heldout[i] for i in reference.SCENES]
+    x = torch.cat([pp.rgb_pair_to_model_input(s.left, s.right, rgb, dev) for s in scenes])
+    frame = torch.from_numpy(reference.frame_720p())[None].to(dev)
+    for scheme, kw in schemes.items():
+        m = net(**kw)
+        with torch.inference_mode():
+            d = m(*pp.split_model_input(x))["disparity"].cpu().numpy()
+            d720 = m(*pp.split_model_input(pp.nv12_ingest(frame, H, 2 * W, rgb)))[
+                "disparity"][0].cpu().numpy()
+        st, st720 = px_stats(d, stored[f"{scheme}_disparity"]), px_stats(
+            d720, stored[f"{scheme}_720p_disparity"])
+        check_int8_spread(f"classic int8 {scheme} scenes", st)
+        check_int8_spread(f"classic int8 {scheme} 720p", st720)
+        phase(f"classic int8 {scheme}: on the card vs JAX int8, 2 scenes: {st}; the 720p frame: "
+              f"{st720}")
+        del m
+    phase(f"classic int8: stored outputs checked ({time.monotonic() - t:.1f} s)")
+
+    # Held-out accuracy in each scheme, paired against JAX's int8 EPEs.
+    lo, hi = (reference.CLASSIC_HELDOUT_EPE_PX - reference.CLASSIC_HELDOUT_EPE_CI95_PX,
+              reference.CLASSIC_HELDOUT_EPE_PX + reference.CLASSIC_HELDOUT_EPE_CI95_PX)
+    for scheme, kw in schemes.items():
+        t = time.monotonic()
+        int8_gemm.calls.clear()
+        res, counts = on_path(CLASSIC_INT8_PATH[1:], lambda: evaluate_dataset(
+            "classic", params, heldout, Config(), device=dev, **kw))
+        jax_epe = stored[f"{scheme}_heldout_epe"]
+        delta = np.asarray(res.per_frame_epe) - jax_epe
+        ci = 1.96 * delta.std(ddof=1) / np.sqrt(len(delta))
+        phase(f"classic int8 accuracy, {scheme}: over {res.n_frames} held-out scenes EPE "
+              f"{res.epe:.4f} px (must lie in [{lo:.4f}, {hi:.4f}]), D1 {res.d1_all:.4f}; paired "
+              f"per-scene EPE - JAX int8 {scheme}: mean {delta.mean():+.5f} +- {ci:.5f} px (95 %; "
+              f"limit |mean| {INT8_PAIRED_MEAN_PX}), max |.| {np.abs(delta).max():.4f} (JAX "
+              f"mean {jax_epe.mean():.4f}, D1 {float(stored[f'{scheme}_heldout_d1']):.4f}); "
+              f"launches {counts}, library calls {int8_gemm.calls['cuda']} "
+              f"({time.monotonic() - t:.1f} s)")
+        if not (lo <= res.epe <= hi and abs(delta.mean()) <= INT8_PAIRED_MEAN_PX):
+            raise AssertionError(f"classic int8 {scheme} held-out EPE {res.epe}, paired mean "
+                                 f"{delta.mean()}")
+
+    # The engines: 32 frames at 720p, microbatch 8, streamed == synchronous.
+    ccfg = dataclasses.replace(Config(), engine=dataclasses.replace(
+        Config().engine, device_microbatch=8))
+    feed = rng.integers(0, 256, (N_FRAMES, 3 * H * W), dtype=np.uint8)
+    launches, library_calls, conv_calls = {}, {}, {}
+    for scheme, kw in schemes.items():
+        t = time.monotonic()
+        eng = StereoEngine(ccfg, params=params, emit_confidence=True, model="classic", **kw)
+        eng.warmup(buckets=[N_FRAMES])
+        int8_gemm.calls.clear()
+        with int8_conv_calls(eng.model, conv_calls.setdefault(scheme, {})) as by_shape:
+            results, counts = on_path(CLASSIC_INT8_PATH, lambda: serve_frames(eng, feed))
+        library_calls[scheme] = int8_gemm.calls["cuda"]
+        by_route = {r: sum(v for k, v in by_shape.items() if k[0] == r)
+                    for r in ("kernel", "library")}
+        chunks = N_FRAMES // 8
+        kernel_convs, library_convs = CLASSIC_INT8_ROUTES
+        if (eng.metrics.dispatch_batch.n != 1
+                or counts["int8_conv"] != kernel_convs * chunks
+                or by_route["kernel"] != kernel_convs * chunks
+                or library_calls[scheme] != library_convs * chunks
+                or by_route["library"] != library_convs * chunks
+                or counts["int8_epilogue"] != library_convs * chunks
+                or counts["soft_argmin_cost"] != chunks):
+            raise AssertionError(f"classic int8 {scheme} engine: "
+                                 f"{eng.metrics.dispatch_batch.summary()}, launches {counts}, "
+                                 f"library calls {library_calls[scheme]}, int8 conv calls by "
+                                 f"route {by_route}")
+        with torch.inference_mode():
+            sync = [o.cpu().numpy() for o in eng.pipeline(torch.from_numpy(feed).to(dev))[:3]]
+        for r in results:
+            for name, got, want in zip(("disparity", "depth_m", "confidence"),
+                                       (r.disparity, r.depth_m, r.confidence), sync):
+                if not np.array_equal(got, want[r.index]):
+                    raise AssertionError(f"classic int8 {scheme} frame {r.index}: streamed "
+                                         f"{name} differs from the synchronous pipeline")
+        launches.update({(k, f"classic {scheme}"): v for k, v in counts.items()})
+        phase(f"classic int8 engine, {scheme}: {N_FRAMES} frames of {W}x{H} (RGB, "
+              f"device_microbatch=8) in one dispatch, finite, streamed == synchronous bit for "
+              f"bit; launches {counts}, library calls {library_calls[scheme]} "
+              f"({time.monotonic() - t:.1f} s)")
+        del eng, results, sync
+
+    # The benchmark surface.
+    for scheme, kw in schemes.items():
+        for b, nb in BENCH_BATCHES.items():
+            t = time.monotonic()
+            out, counts = on_path(CLASSIC_INT8_PATH, lambda: measure_engine_fps(
+                model="classic", params=params, model_cfg=mcfg, preprocess_cfg=rgb, batch=b,
+                n_batches=nb, device_microbatch=8, ring_size=2, height=H, width=W, **kw))
+            phase(f"bench classic int8 {scheme}: measure_engine_fps batch {b}: {out}; launches "
+                  f"{counts}; {card} ({time.monotonic() - t:.1f} s)")
+    return kernel_rows, library_rows, epilogue_rows, launches, library_calls, conv_calls
+
+
 def check_backward(name: str, got, want) -> str:
     """float32: within 1e-5 of the largest magnitude; bf16: >= 99.9 % of the
     values within one bf16 step of the plain version's, all within two."""
@@ -1571,6 +1953,135 @@ def conv_probe(dev, net, card) -> None:
         phase(f"classic conv probe: cuDNN bf16 {label} on {list(xs)} ({fmt}): {ms:.3f} ms, "
               f"{flops / ms / 1e9:.1f} TFLOP/s; {card}")
         del x, wt
+
+
+def _die_with_parent() -> None:
+    """In a child: be killed when this script's process ends (Linux
+    ``PR_SET_PDEATHSIG``), so that no command outlives the run."""
+    import ctypes
+    import signal
+
+    ctypes.CDLL(None).prctl(1, signal.SIGKILL)
+
+
+def start_cli(*args: str):
+    """``python3 -m hobot_stereonet_tpu_torch.cli <args>`` from the checkout's
+    root, its output captured."""
+    return subprocess.Popen([sys.executable, "-m", "hobot_stereonet_tpu_torch.cli", *args],
+                            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            preexec_fn=_die_with_parent)
+
+
+def finish_cli(name: str, proc, timeout: float = 300.0) -> dict:
+    """Wait for a command; it must exit 0 and print one JSON line last."""
+    out, err = proc.communicate(timeout=timeout)
+    lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"cli {name}: exit {proc.returncode}; stdout {out[-1500:]!r}; "
+                             f"stderr {err[-3000:]!r}")
+    return json.loads(lines[-1])
+
+
+def cli_phase(ctx: dict) -> None:
+    """Phase 13: the command line, each command a process of its own on the
+    card (``python3 -m hobot_stereonet_tpu_torch.cli``), exit 0 and one JSON
+    line each, checked against the same work in this process.  They run
+    several at once (the stream renders its 720p scenes on the host, about
+    a second each, so it starts first), and ``bench`` alone after them, so
+    that nothing else runs on the card while it times.  ``dump`` and ``compare``
+    of two dumps need PNG input, read through PIL: they run only where
+    :data:`CARD_HAS_PIL`."""
+    import numpy as np
+    import torch
+
+    from hobot_stereonet_tpu_torch import cli, reference
+    from hobot_stereonet_tpu_torch.config import Config
+    from hobot_stereonet_tpu_torch.data.bintensor import load_input_tensor, save_input_tensor
+    from hobot_stereonet_tpu_torch.ops import colorspace as cs
+    from hobot_stereonet_tpu_torch.ops import preprocess as pp
+    from hobot_stereonet_tpu_torch.runtime.engine import StereoEngine
+
+    t = time.monotonic()
+    dev, cfg, trained = ctx["dev"], ctx["cfg"], ctx["trained"]
+    out = ROOT / "build" / "cli"
+    out.mkdir(parents=True, exist_ok=True)
+    sbs = reference.frame_720p()
+    x = pp.nv12_ingest(torch.from_numpy(sbs)[None].to(dev), H, 2 * W, Config().preprocess)
+    save_input_tensor(str(out / "x.raw"), x.cpu().numpy(), dtype="float32", layout="nchw")
+    eyes = cs.split_side_by_side_nv12(torch.from_numpy(sbs), H, 2 * W)
+    for name, eye in zip(("left.nv12", "right.nv12"), eyes):
+        eye.numpy().tofile(out / name)
+    classic = ["--model", "classic", "--checkpoint", str(reference.CLASSIC_PARAMS_NPZ)]
+    layered = ["eval", "--dataset", "layered", "--frames", "8", "--check-determinism"]
+    commands = {
+        "infer --input-bin": ["infer", "--input-bin", str(out / "x.raw")],
+        "infer .nv12": ["infer", "--left", str(out / "left.nv12"), "--right",
+                        str(out / "right.nv12")],
+        "eval flagship bf16": layered,
+        "eval flagship --int8-calib": layered + ["--int8-calib", str(reference.CALIB_JSON)],
+        "eval classic --int8": layered + classic + ["--int8"],
+        "calibrate classic": ["calibrate", "--out", str(out / "classic_calib.json")] + classic,
+    }
+    if CARD_HAS_PIL:
+        from PIL import Image
+
+        s = ctx["heldout"][0]
+        for name, img in (("left.png", s.left), ("right.png", s.right)):
+            Image.fromarray(img).save(out / name)
+        pair = ["--left", str(out / "left.png"), "--right", str(out / "right.png")]
+        commands["dump bf16"] = ["dump", *pair, "--out", str(out / "a.npz")]
+        commands["dump bf16 again"] = ["dump", *pair, "--out", str(out / "b.npz"),
+                                       "--bin-out", str(out / "b_bin")]
+    stream = start_cli("stream", "--frames", "64", "--unpaced", "--ring")
+    procs = {name: start_cli(*args) for name, args in commands.items()}
+    got = {name: finish_cli(name, proc) for name, proc in procs.items()}
+    after = {"eval classic --int8-calib (calibrated here)":
+             layered + classic + ["--int8-calib", str(out / "classic_calib.json")]}
+    if CARD_HAS_PIL:
+        after["compare the two dumps"] = ["compare", str(out / "a.npz"), str(out / "b.npz")]
+    procs = {name: start_cli(*args) for name, args in after.items()}
+    got.update({name: finish_cli(name, proc) for name, proc in procs.items()})
+    got["stream --frames 64 --unpaced --ring"] = finish_cli("stream", stream)
+    got["bench --streaming"] = finish_cli("bench", start_cli("bench", "--streaming"))
+    for name, line in got.items():
+        phase(f"cli {name}: {json.dumps(line)[:400]}")
+
+    # The same work in this process: the default engine (the crowned
+    # flagship's model and weights, RGB input) on the same inputs.
+    eng = StereoEngine(dataclasses.replace(Config(), model=cfg.model), params=trained)
+    disp = eng.infer_preprocessed(load_input_tensor(str(out / "x.raw"), H, W))
+    imgs = [cli._read_any_image(str(out / n), H, W) for n in ("left.nv12", "right.nv12")]
+    disp_nv12 = eng.infer(*imgs)
+    for name, d in (("infer --input-bin", disp), ("infer .nv12", disp_nv12)):
+        want = {"min": float(d.min()), "max": float(d.max()), "mean": float(d.mean())}
+        line = got[name]["disparity_px"]
+        diff = max(abs(line[k] - want[k]) for k in want)
+        phase(f"cli {name}: the JSON line against StereoEngine on the same input: max "
+              f"|difference| {diff:.3g} px (limit {CLI_ENGINE_PX})")
+        if got[name]["shape"] != [H, W] or diff > CLI_ENGINE_PX:
+            raise AssertionError(f"cli {name}: {line} against the engine's {want}")
+    for name, line in got.items():
+        if name.startswith("eval") and not (line["deterministic"] and line["n_frames"] == 8
+                                            and np.isfinite(line["epe_px"])):
+            raise AssertionError(f"cli {name}: {line}")
+    if got["calibrate classic"]["convs"] != 53:
+        raise AssertionError(f"cli calibrate classic: {got['calibrate classic']}")
+    committed = json.loads(reference.CLASSIC_CALIB_JSON.read_text())
+    mine = json.loads((out / "classic_calib.json").read_text())
+    equal = sum(mine[k] == committed[k] for k in committed)
+    phase(f"cli calibrate classic on the card: {equal} of {len(committed)} scales equal to "
+          f"classic_calib.json (JAX's on the CPU), largest ratio "
+          f"{max(max(mine[k] / committed[k], committed[k] / mine[k]) for k in committed):.5f}")
+    stream = got["stream --frames 64 --unpaced --ring"]
+    if (stream["capture_ring"] != "native"
+            or stream["frames_out"] + stream["capture_dropped"] != 64 or stream["nan_dropped"]):
+        raise AssertionError(f"cli stream: {stream}")
+    if CARD_HAS_PIL and not got["compare the two dumps"]["match"]:
+        raise AssertionError(f"cli compare: {got['compare the two dumps']}")
+    if got["bench --streaming"]["value"] <= 0:
+        raise AssertionError(f"cli bench: {got['bench --streaming']}")
+    phase(f"cli: {len(got)} commands, each exit 0 with its JSON line; the stream's frames "
+          f"carried by the native host ring ({time.monotonic() - t:.1f} s)")
 
 
 def main() -> int:
@@ -1951,15 +2462,34 @@ def main() -> int:
     phase(f"groupnorm: launches by shape on the serving paths of phases 5 and 11: {gn_shapes}")
     rows += classic_rows
 
+    # 11b. CLASSIC in int8 ----------------------------------------------------------
+    c8_rows, library_rows, epi_rows, c8_launches, library_calls, c8_calls = classic_int8_phase(
+        dict(dev=dev, card=card, rng=rng, heldout=heldout))
+    path_launches.update(c8_launches)
+    src8 = dict(name="int8_conv", route="cuda",
+                source="hobot_stereonet_tpu_torch/csrc/int8_conv.cu",
+                replaces="hobot_stereonet_tpu/ops/quant.py:92 (XLA s8 conv, not Pallas)")
+    src_epi = dict(name="int8_epilogue", route="cuda",
+                   source="hobot_stereonet_tpu_torch/csrc/int8_epilogue.cu",
+                   replaces="hobot_stereonet_tpu/ops/quant.py:103-105 (the dequant of XLA's s8 "
+                            "conv, not Pallas)")
+    rows += [dict(r, scheme="classic static", **src8) for r in c8_rows]
+    rows += [dict(r, scheme="classic static", **src_epi) for r in epi_rows]
+
     # 12. training ------------------------------------------------------------------
     train_rows, train_launches = training_phase(dict(dev=dev, card=card, rng=rng, cfg=cfg,
                                                      log=log, gn_per_forward=gn_per_forward))
     rows += train_rows
     path_launches.update(train_launches)
 
+    # 13. the command line ---------------------------------------------------------
+    cli_phase(dict(dev=dev, cfg=cfg, trained=trained, heldout=heldout))
+
     def row_launches(r):
         if "key" in r:                            # a GroupNorm shape and form: its launches
             return gn_shapes.get(r["key"], 0)
+        if "launch_key" in r:                     # a CLASSIC int8 shape (static engine)
+            return c8_calls["static"].get(r["launch_key"], 0)
         return path_launches[(r["name"], r.get("mode") or r.get("scheme"))]
 
     print(json.dumps({"kernels": [dict(
@@ -1970,7 +2500,17 @@ def main() -> int:
         plain_ms=r["plain_ms"], bound_ms=r["bound"][0], bound_by=r["bound"][1],
         library_ms=r["library_ms"],
         **{k: r[k] for k in ("cudnn_bf16_ms", "unfused_ms", "other_mode_ms") if k in r})
-        for r in rows]}), flush=True)
+        for r in rows], "library": dict(
+            name="int8_conv_im2col",
+            route="library: im2col + torch._int_mm, then the int8_epilogue kernel (not a kernel)",
+            source="hobot_stereonet_tpu_torch/ops/int8_gemm.py",
+            replaces="hobot_stereonet_tpu/ops/quant.py:92 (XLA s8 conv, not Pallas)",
+            calls=library_calls, shapes=[dict(
+                shape=r["shape"], convs=r["convs"], batch=r["batch"],
+                calls={s: c8_calls[s].get(r["launch_key"], 0) for s in c8_calls},
+                max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+                bound_ms=r["bound"][0], bound_by=r["bound"][1],
+                cudnn_bf16_ms=r["cudnn_bf16_ms"]) for r in library_rows])}), flush=True)
     phase(f"done in {time.monotonic() - T0:.1f} s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

@@ -5,7 +5,11 @@ engine takes, the host-side conversions between an RGB pair and the
 camera's side-by-side NV12 buffer, a paced synthetic source, and the
 device frame ring that the benchmark feeds from.
 
-The ring stands in for a camera that writes frames into device memory: one
+``ThreadedCaptureSource`` runs any source in a capture thread that hands
+frames to the feed side through the native host ring
+(``runtime/hostio.py``); ``ImageListStreamSource`` replays image lists.
+
+The device ring stands in for a camera that writes frames into device memory: one
 ``[R, L]`` uint8 tensor on the device, staged once.  Frames carry
 :class:`RingSlot` handles, and the engine turns a batch of slots of one
 ring into a single gather on the device, with no host copy.
@@ -160,3 +164,194 @@ class DeviceFrameRing:
         for i in range(n):
             yield Frame(time.monotonic(), RingSlot(self, i % k), self.height,
                         2 * self.width, self._gt[i % k], i)
+
+
+class ThreadedCaptureSource:
+    """Capture-thread decoupling over any frame source, transported through
+    the native SPSC :class:`~..runtime.hostio.FrameRing`.
+
+    The reference runs the camera in its own process and ships frames to
+    the inference node over hbmem zero-copy shared memory
+    (``stereonet_node.h:95-97``) — capture pacing and image decode never
+    block inference, and a slow consumer drops frames instead of stalling
+    the camera.  This is that topology inside one process: a producer
+    thread iterates the wrapped source (decode + pacing happen there) and
+    pushes raw frame bytes into the lock-free C++ ring
+    (``hobot_stereonet_tpu_torch/native/hostio.cpp``); the consuming
+    iterator pops on the feed side.
+    Frame metadata that can't ride the byte ring (GT disparity for
+    eval-over-stream) travels in a bounded side map keyed by the frame
+    index the ring does carry.
+
+    Falls back to a plain deque ring (same drop-on-full semantics) when no
+    C++ toolchain is available — the product path stays importable
+    anywhere, just without the native transport.  ``native`` says which
+    ring carried the frames of the last iteration.
+    """
+
+    def __init__(self, source, capacity: int = 8,
+                 use_native: Optional[bool] = None):
+        self.source = source
+        self.capacity = capacity
+        if use_native is None:
+            from ..runtime import hostio
+
+            use_native = hostio.available()
+        self.use_native = use_native
+        self.dropped = 0
+        self.native = False
+
+    def __iter__(self) -> Iterator[Frame]:
+        import queue as _queue
+        import threading
+
+        self.native = False
+
+        meta: dict = {}
+        meta_lock = threading.Lock()
+        done = threading.Event()
+        stop = threading.Event()  # consumer closed early: stop capturing
+        error: list = []  # producer exception, re-raised on the feed side
+        geom: list = []  # [(height, full_width)] set by the first frame
+        geom_ready = threading.Event()
+        ring = None
+        fallback: "_queue.Queue" = _queue.Queue(maxsize=self.capacity)
+
+        def produce():
+            nonlocal ring
+            try:
+                for frame in self.source:
+                    if stop.is_set():
+                        # Consumer closed the iterator early (max_frames,
+                        # feed-side exception): stop promptly instead of
+                        # decoding the wrapped source to exhaustion —
+                        # forever for an unbounded paced source.
+                        break
+                    buf = np.ascontiguousarray(
+                        np.asarray(frame.sbs_nv12), np.uint8
+                    )
+                    if not geom:
+                        geom.append((frame.height, frame.full_width))
+                        if self.use_native:
+                            from ..runtime.hostio import FrameRing
+
+                            ring = FrameRing(buf.nbytes, self.capacity)
+                            self.native = True
+                        geom_ready.set()
+                    with meta_lock:
+                        meta[frame.index] = (frame.gt_disparity,
+                                             frame.timestamp)
+                    if ring is not None:
+                        ok = ring.push(buf, frame.timestamp, frame.index)
+                    else:
+                        try:
+                            fallback.put_nowait(
+                                (buf, frame.timestamp, frame.index)
+                            )
+                            ok = True
+                        except _queue.Full:
+                            ok = False
+                    if not ok:
+                        # Ring full: drop the newest frame, exactly the
+                        # engine/reference drop policy — capture never
+                        # blocks on a slow consumer.
+                        self.dropped += 1
+                        with meta_lock:
+                            meta.pop(frame.index, None)
+            except BaseException as e:  # noqa: BLE001 — re-raised below
+                # Capture-side failures (decode errors, missing files in a
+                # replay list) must surface on the feed side, not die
+                # silently in the thread (same policy as the serving
+                # loops' worker-error surfacing).
+                error.append(e)
+            finally:
+                geom_ready.set()
+                done.set()
+
+        t = threading.Thread(target=produce, daemon=True,
+                             name="capture-producer")
+        t.start()
+        try:
+            geom_ready.wait()
+            if not geom:
+                if error:
+                    raise RuntimeError("capture thread died") from error[0]
+                return  # empty source
+            height, full_width = geom[0]
+            while True:
+                item = None
+                if ring is not None:
+                    item = ring.pop()
+                else:
+                    try:
+                        item = fallback.get_nowait()
+                    except _queue.Empty:
+                        item = None
+                if item is None:
+                    if done.is_set() and (
+                        len(ring) == 0 if ring is not None
+                        else fallback.empty()
+                    ):
+                        break
+                    time.sleep(0.001)
+                    continue
+                buf, ts, idx = item
+                with meta_lock:
+                    gt, ts0 = meta.pop(idx, (None, ts))
+                yield Frame(ts0, buf, height, full_width, gt, int(idx))
+            if error:
+                raise RuntimeError("capture thread died") from error[0]
+        finally:
+            stop.set()
+            done.wait(timeout=5.0)
+            t.join(timeout=5.0)
+            if ring is not None:
+                self.dropped = max(self.dropped, ring.dropped)
+                ring.close()
+
+
+def read_list_file(path: str) -> List[str]:
+    """One image path per line (the reference's .list files,
+    ``stereonet_node.cpp:832-887``); blank lines and #-comments ignored;
+    relative paths resolve against the list file's directory."""
+    import os
+
+    base = os.path.dirname(os.path.abspath(path))
+    out = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            out.append(line if os.path.isabs(line)
+                       else os.path.join(base, line))
+    return out
+
+
+class ImageListStreamSource:
+    """Replay of (left, right) image-file pairs at a fixed pace — the
+    reference's image-list feedback mode, minus the 300 ms hard-coding."""
+
+    def __init__(self, left_paths: List[str], right_paths: List[str],
+                 fps: float = 3.33, paced: bool = True):
+        if len(left_paths) != len(right_paths):
+            raise ValueError("left/right list length mismatch")
+        self.left_paths = left_paths
+        self.right_paths = right_paths
+        self.fps = fps
+        self.paced = paced
+
+    def __iter__(self) -> Iterator[Frame]:
+        from .sceneflow import _read_image
+
+        period = 1.0 / self.fps if self.fps > 0 else 0.0
+        next_t = time.monotonic()
+        for i, (lp, rp) in enumerate(zip(self.left_paths, self.right_paths)):
+            l, r = _read_image(lp), _read_image(rp)
+            buf = rgb_pair_to_sbs_nv12(l, r)
+            if self.paced:
+                now = time.monotonic()
+                if now < next_t:
+                    time.sleep(next_t - now)
+                next_t += period
+            yield Frame(time.monotonic(), buf, l.shape[0], 2 * l.shape[1], None, i)

@@ -85,8 +85,10 @@ class FeatureTower(nn.Module):
         self.Conv_0 = SameConv2d(c, c, 3)
         self._down = cfg.downsample_factor
         self._res = cfg.num_feature_res_blocks
+        self._dtype = cfg.compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self._dtype)        # as flax's tower: an int8 conv quantizes the cast input
         for i in range(self._down):
             x = getattr(self, f"ConvBlock_{i}")(x)
         for i in range(self._res):
@@ -141,10 +143,13 @@ class RefinementNet(nn.Module):
                     ResBlock2D(c, dilation=REFINE_DILATIONS[i % len(REFINE_DILATIONS)]))
         self.Conv_0 = SameConv2d(c, 1, 3)
         self._blocks = nb
+        self._dtype = cfg.compute_dtype
 
     def forward(self, disparity: torch.Tensor, guide: torch.Tensor) -> torch.Tensor:
-        # The first conv casts [disparity, guide] to the compute dtype.
-        x = self.ConvBlock_0(_nchw(torch.cat([disparity[..., None], guide.float()], -1)))
+        # [disparity, guide] in the compute dtype, as flax's (an int8 conv
+        # quantizes the cast values).
+        x = self.ConvBlock_0(_nchw(torch.cat([disparity[..., None], guide.float()], -1)
+                                   .to(self._dtype)))
         for i in range(self._blocks):
             x = getattr(self, f"ResBlock2D_{i}")(x)
         return torch.relu(disparity + self.Conv_0(x)[:, 0].float())

@@ -39,6 +39,7 @@ launch_counts: "collections.Counter[str]" = collections.Counter()
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signature of every exported function: (argtypes), restype is int.
 _SIGNATURES = {
     # src, dst, B, H, W, rgb, quantize, stream
@@ -57,9 +58,12 @@ _SIGNATURES = {
     "hst_soft_argmin_dlead_backward": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
     # x, w, s_k, bias, sx, qs, y, plan (int8_conv.PlanArgs), per_sample, divide, stream
     "hst_int8_conv": (_P,) * 8 + (_I, _I, _P),
+    # acc, its row stride, rows, Cout, rows a sample, sx, per_sample, s_k, bias, y, is_bf16,
+    # stream
+    "hst_int8_epilogue": (_P, _L, _L, _I, _L, _P, _I, _P, _P, _P, _I, _P),
     # x, conv bias, bias is bf16, skip, activate, gamma, beta, y, r, mean, rstd,
     # workspace, its bytes, phase clock, sequential, N, C, P, G, R, eps, is_bf16, stream
-    "hst_group_norm": (_P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P,
+    "hst_group_norm": (_P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _L, _P,
                        _I, _I, _I, _I, _I, _I, ctypes.c_double, _I, _P),
 }
 

@@ -44,6 +44,7 @@ from . import build
 from .numerics import fma_f32
 
 NAME = "int8_conv"
+EPILOGUE_NAME = "int8_epilogue"   # the library route's epilogue (csrc/int8_epilogue.cu)
 QMAX = 127.0
 _IN_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -59,6 +60,7 @@ N_WIDE = 64                   # wgmma N of each instruction of a wider slice
 N_MAX = 192                   # widest slice of output channels resident in a block
 EPI_CHANNELS = 64             # channels of one epilogue pass through shared memory
 PLAN_VERSION = 2              # struct PlanArgs of csrc/int8_conv.cu checks it
+DENSE_CIN = (3, 4)            # Cin the dense path is routed at (bit-equal on the card at each)
 
 
 def same_pads(size: int, kernel: int, stride: int, dilation: int = 1):
@@ -273,9 +275,10 @@ def _plan_args(*key) -> PlanArgs:
 
 
 def _check(x, q_w, s_k, bias, sx, qs, out_dtype) -> None:
-    if x.dim() != 4 or q_w.dim() != 4 or x.shape[1] != q_w.shape[1]:
+    if x.dim() not in (4, 5) or q_w.dim() != x.dim() or x.shape[1] != q_w.shape[1]:
         raise ValueError(f"{NAME}: input {tuple(x.shape)} and weights {tuple(q_w.shape)} "
-                         "do not match ([N, Cin, H, W] and [Cout, Cin, kh, kw])")
+                         "do not match ([N, Cin, *spatial] and [Cout, Cin, *kernel], "
+                         "2 or 3 spatial axes)")
     if x.dtype not in _IN_DTYPES or out_dtype not in _IN_DTYPES:
         raise TypeError(f"{NAME}: float32 or bfloat16 only, got {x.dtype} -> {out_dtype}")
     if q_w.dtype != torch.int8:
@@ -290,27 +293,107 @@ def _check(x, q_w, s_k, bias, sx, qs, out_dtype) -> None:
                          f"got {sx.numel()} and {qs.numel()}")
 
 
+def memory_format(dim: int) -> torch.memory_format:
+    """The channels-last memory format of a ``dim``-D activation."""
+    return torch.channels_last if dim == 4 else torch.channels_last_3d
+
+
+def quantize_input(x: torch.Tensor, qs: torch.Tensor, divide: bool) -> torch.Tensor:
+    """``clip(rint(x / qs[n]), +-127)`` (``divide``) or ``clip(rint(x * qs),
+    +-127)`` of ``x`` [N, ...] in float32, as float32 codes."""
+    q = x.float() if x.dtype != torch.float32 else x.clone()
+    qv = qs.view(-1, *([1] * (x.dim() - 1)))
+    q.div_(qv) if divide else q.mul_(qv)
+    return q.round_().clamp_(-QMAX, QMAX)
+
+
+def epilogue(acc: torch.Tensor, sx: torch.Tensor, s_k: torch.Tensor, bias: torch.Tensor,
+             channel_axis: int, out_dtype: torch.dtype) -> torch.Tensor:
+    """``fma(acc, sx[n] * s_k[c], bias[c])`` rounded once to float32, then to
+    ``out_dtype``; ``acc`` (float32, exact integers) has its samples on axis
+    0 and its channels on ``channel_axis``."""
+    shape = [1] * acc.dim()
+    shape[channel_axis] = -1
+    scale = sx.view(-1, *([1] * (acc.dim() - 1))) * s_k.view(shape)
+    return fma_f32(acc, scale, bias.view(shape)).to(out_dtype)
+
+
+def int8_epilogue(acc: torch.Tensor, rows: int, cout: int, rows_per_sample: int,
+                  sx: torch.Tensor, s_k: torch.Tensor, bias: torch.Tensor,
+                  out_dtype: torch.dtype) -> torch.Tensor:
+    """:func:`epilogue` of an int32 product ``acc`` [>= rows, >= Cout]
+    (``torch._int_mm``'s, columns padded past Cout), ``rows_per_sample``
+    rows a sample -> [rows, Cout] in ``out_dtype``, contiguous.  The kernel
+    of ``csrc/int8_epilogue.cu`` for CUDA tensors, :func:`epilogue` for CPU
+    tensors."""
+    if acc.dtype != torch.int32 or acc.dim() != 2 or acc.stride(1) != 1:
+        raise ValueError(f"{EPILOGUE_NAME}: int32 rows with unit column stride expected, got "
+                         f"{acc.dtype} {tuple(acc.shape)} strides {acc.stride()}")
+    if rows % rows_per_sample or sx.numel() not in (1, rows // rows_per_sample):
+        raise ValueError(f"{EPILOGUE_NAME}: {rows} rows, {rows_per_sample} a sample and "
+                         f"{sx.numel()} scales do not agree")
+    if acc.device.type == "cpu":
+        a = acc[:rows, :cout].float().view(-1, rows_per_sample, cout)
+        return epilogue(a, sx, s_k, bias, 2, out_dtype).view(rows, cout)
+    if acc.device.type != "cuda":
+        raise ValueError(f"{EPILOGUE_NAME}: unsupported device {acc.device}")
+    if out_dtype not in _IN_DTYPES:
+        raise TypeError(f"{EPILOGUE_NAME}: float32 or bfloat16 out only, got {out_dtype}")
+    params = (sx, s_k, bias)
+    if (acc.shape[0] < rows or acc.shape[1] < cout or s_k.numel() != cout
+            or bias.numel() != cout
+            or any(t.dtype != torch.float32 or t.device != acc.device or not t.is_contiguous()
+                   for t in params)):
+        raise ValueError(f"{EPILOGUE_NAME}: s_x, s_k and bias must be contiguous float32 on "
+                         f"{acc.device}, with {cout} values of s_k and bias")
+    y = torch.empty((rows, cout), dtype=out_dtype, device=acc.device)
+    err = build.library().hst_int8_epilogue(
+        acc.data_ptr(), acc.stride(0), rows, cout, rows_per_sample, sx.data_ptr(),
+        int(sx.numel() != 1), s_k.data_ptr(), bias.data_ptr(), y.data_ptr(),
+        int(out_dtype == torch.bfloat16), build.stream_handle(acc))
+    build.check(EPILOGUE_NAME, err)
+    build.launch_counts[EPILOGUE_NAME] += 1
+    return y
+
+
 def int8_conv_plain(x: torch.Tensor, q_w: torch.Tensor, s_k: torch.Tensor,
                     bias: torch.Tensor, sx: torch.Tensor, qs: torch.Tensor, *,
-                    stride: int, divide: bool, out_dtype: torch.dtype) -> torch.Tensor:
-    """The function of the module docstring in plain PyTorch, channels-last out.
+                    stride: int, divide: bool, out_dtype: torch.dtype,
+                    dilation: int = 1) -> torch.Tensor:
+    """The function of the module docstring in plain PyTorch, channels-last
+    out, for a 2-D or 3-D conv (``x`` [N, Cin, *spatial], ``q_w`` [Cout,
+    Cin, *kernel]) at any stride and dilation, flax "SAME" padding.
 
     The integer conv runs in float64, where every partial sum of int8
     products is exact (|acc| <= 127^2 * K < 2^53), and is then rounded to
     float32 as the kernel's int32 -> float32 conversion rounds it.
     """
     _check(x, q_w, s_k, bias, sx, qs, out_dtype)
-    _, _, h, w = x.shape
-    kh, kw = q_w.shape[2:]
-    x32 = x.float()
-    qv = qs.view(-1, 1, 1, 1)
-    q = torch.clamp(torch.round(x32 / qv if divide else x32 * qv), -QMAX, QMAX)
-    ph, pw = same_pads(h, kh, stride), same_pads(w, kw, stride)
-    acc = F.conv2d(F.pad(q.double(), (pw[0], pw[1], ph[0], ph[1])), q_w.double(),
-                   stride=stride).float()
-    scale = sx.view(-1, 1, 1, 1) * s_k.view(1, -1, 1, 1)
-    y = fma_f32(acc, scale, bias.view(1, -1, 1, 1))
-    return y.to(out_dtype).contiguous(memory_format=torch.channels_last)
+    q = quantize_input(x, qs, divide)
+    pads = [same_pads(s, k, stride, dilation) for s, k in zip(x.shape[2:], q_w.shape[2:])]
+    conv = F.conv2d if x.dim() == 4 else F.conv3d
+    acc = conv(F.pad(q.double(), [p for lo_hi in reversed(pads) for p in lo_hi]),
+               q_w.double(), stride=stride, dilation=dilation).float()
+    y = epilogue(acc, sx, s_k, bias, 1, out_dtype)
+    return y.contiguous(memory_format=memory_format(x.dim()))
+
+
+def kernel_takes(cin: int, cout: int, kernel, stride: int, dilation: int) -> bool:
+    """Whether :func:`int8_conv` runs this conv on the card: a square 2-D
+    undilated kernel at stride 1 or 2, Cout a multiple of 8, and Cin a
+    multiple of 8 (the TMA path) or one of :data:`DENSE_CIN` (the dense
+    path, checked bit for bit on the card at each)."""
+    return (len(kernel) == 2 and kernel[0] == kernel[1] and dilation == 1
+            and stride in (1, 2) and cout % 8 == 0 and (cin % 8 == 0 or cin in DENSE_CIN))
+
+
+def padded_channels(cin: int, cout: int):
+    """(Cin, Cout) at which the kernel runs a conv zero padded to its
+    channels: Cout up to a multiple of 8, and Cin up to a multiple of 8
+    unless it is one of :data:`DENSE_CIN`.  Zero weights and zero input
+    channels add nothing to the integer sums, and the padded outputs are
+    dropped, so the conv's result is unchanged."""
+    return (cin if cin % 8 == 0 or cin in DENSE_CIN else _up(cin, 8)), _up(cout, 8)
 
 
 def int8_conv(x: torch.Tensor, q_w: torch.Tensor, packed: torch.Tensor, s_k: torch.Tensor,
@@ -325,6 +408,8 @@ def int8_conv(x: torch.Tensor, q_w: torch.Tensor, packed: torch.Tensor, s_k: tor
     if x.device.type != "cuda":
         raise ValueError(f"{NAME}: unsupported device {x.device}")
     _check(x, q_w, s_k, bias, sx, qs, out_dtype)
+    if x.dim() != 4:
+        raise ValueError(f"{NAME}: 2-D convs only on the card, got {tuple(q_w.shape)}")
     n, cin, h, w = x.shape
     cout, _, kh, kw = q_w.shape
     if kh != kw or stride not in (1, 2):

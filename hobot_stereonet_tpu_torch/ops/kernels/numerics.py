@@ -44,3 +44,4 @@ def fma_f32(a, b, c) -> torch.Tensor:
     hi = torch.nextafter(lo, inf)
     tie = s == (lo.double() + hi.double()) * 0.5
     return torch.where(tie & (err > 0), hi, torch.where(tie & (err < 0), lo, r))
+

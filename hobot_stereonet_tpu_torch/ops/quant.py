@@ -2,9 +2,13 @@
 
 Counterpart of ``hobot_stereonet_tpu/ops/quant.py``.  Weights are
 quantized symmetrically per output channel, activations per sample, and
-every ``SameConv2d`` runs as :class:`Int8Conv2d` (the kernel of
-``ops/kernels/int8_conv.py``); GroupNorm, the activations, the
-correlation and the soft-argmin stay in floating point.
+every ``SameConv2d`` and ``SameConv3d`` runs as :class:`Int8Conv`: on the
+card through the kernel of ``ops/kernels/int8_conv.py`` where it takes the
+conv's shape (zero padded to its channels where needed), else through the
+exact library product of ``ops/int8_gemm.py`` (CLASSIC's 3-D and dilated
+convs);
+GroupNorm, the activations, the correlation and the soft-argmin stay in
+floating point.
 
 Two schemes, as in the JAX package:
 
@@ -32,10 +36,11 @@ fuses a multiply followed by an add (``ops/kernels/numerics.py``).  So:
   * the epilogue is ``fma(float(acc), s_x * s_k, bias)``, rounded once to
     the compute dtype.
 
-The model input reaches the first conv unrounded: the conv quantizes its
-argument as it comes, before any cast to the compute dtype, as flax's
-interceptor does.  Per-sample scales and the kernel's fixed order of
-summation make a frame's result independent of the batch it is in.
+A conv quantizes its argument as it comes, as flax's interceptor does;
+the networks cast the feature tower's and each refinement's input to the
+compute dtype first, as the flax modules do.  Per-sample scales and fixed
+orders of summation make a frame's result independent of the batch it is
+in.
 """
 
 from __future__ import annotations
@@ -46,11 +51,14 @@ from typing import Iterable, Mapping, Optional
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
-from ..models.layers import SameConv2d, cast_convs
+from ..models.layers import SameConv2d, SameConv3d, cast_convs
+from . import int8_gemm
 from .kernels import int8_conv as k8
 from .kernels.numerics import reciprocal_f32
 
+CONVS = (SameConv2d, SameConv3d)
 QMAX = 127.0
 MIN_SCALE = 1e-12
 # What XLA multiplies by for "/ 127" inside a compiled program.
@@ -67,17 +75,17 @@ def _scale(amax: torch.Tensor, baked: bool) -> torch.Tensor:
 
 
 def quantize_weight(weight: torch.Tensor, baked: bool = False):
-    """Per-output-channel symmetric int8 of a float32 conv weight [Cout, Cin, kh, kw].
+    """Per-output-channel symmetric int8 of a float32 conv weight [Cout, Cin, *kernel].
 
-    Returns ``(q int8 [Cout, Cin, kh, kw], s float32 [Cout])`` with
+    Returns ``(q int8 [Cout, Cin, *kernel], s float32 [Cout])`` with
     ``s = max(max|w| / 127, 1e-12)`` and ``q = clip(round(w / s), +-127)``.
     ``baked=False``: as the dynamic scheme quantizes inside its compiled
     program (``max|w| * float32(1/127)``); ``baked=True``: as ``bake_weights``
     does for the static scheme (a true division)."""
     if weight.dtype != torch.float32:
         raise TypeError(f"quantize the float32 weights, got {weight.dtype}")
-    s = _scale(weight.abs().amax(dim=(1, 2, 3)), baked)
-    q = torch.clamp(torch.round(weight / s.view(-1, 1, 1, 1)), -QMAX, QMAX)
+    s = _scale(weight.abs().amax(dim=tuple(range(1, weight.dim()))), baked)
+    q = torch.clamp(torch.round(weight / s.view(-1, *([1] * (weight.dim() - 1)))), -QMAX, QMAX)
     return q.to(torch.int8), s
 
 
@@ -98,25 +106,48 @@ def quantize_activation(x: torch.Tensor):
     return q.to(torch.int8), s
 
 
-class Int8Conv2d(nn.Module):
-    """A ``SameConv2d`` run as a w8a8 conv, with its int8 weights quantized
-    once from the float32 ones.
+class Int8Conv(nn.Module):
+    """A ``SameConv2d`` or ``SameConv3d`` run as a w8a8 conv, with its int8
+    weights quantized once from the float32 ones.
 
     ``act_scale`` is the calibrated input scale of the static scheme,
     rounded once to float32; ``None`` selects the dynamic scheme.  The
     output has ``out_dtype`` (the compute dtype) in channels-last memory.
+
+    The route on the card is fixed here, by shape: the int8 conv kernel
+    (``route == "kernel"``) for every conv it takes
+    (:func:`~.kernels.int8_conv.kernel_takes`), zero padded to the channels
+    it takes where needed (:func:`~.kernels.int8_conv.padded_channels`:
+    CLASSIC's Cout 1 and 12 and Cin 12), else the exact library product of
+    ``ops/int8_gemm.py`` (``"library"``: the 3-D and the dilated convs).
+    On the CPU both are the kernel's plain version.
     """
 
-    def __init__(self, conv: SameConv2d, out_dtype: torch.dtype,
+    def __init__(self, conv: "SameConv2d | SameConv3d", out_dtype: torch.dtype,
                  act_scale: Optional[float] = None):
         super().__init__()
         q, s = quantize_weight(conv.weight.detach(), baked=act_scale is not None)
         self.stride = conv.stride[0]
+        self.dilation = conv.dilation[0]
         self.out_dtype = out_dtype
+        cout, cin = q.shape[:2]
+        self.channels = k8.padded_channels(cin, cout)      # what the kernel runs at
+        self.route = "kernel" if k8.kernel_takes(*self.channels, q.shape[2:], self.stride,
+                                                 self.dilation) else "library"
+        bias = conv.bias.detach().float().clone()
         self.register_buffer("q_weight", q)
-        self.register_buffer("packed_weight", k8.pack_weight(q))
         self.register_buffer("weight_scale", s)
-        self.register_buffer("bias", conv.bias.detach().float().clone())
+        self.register_buffer("bias", bias)
+        if self.route == "kernel":
+            # The weights, scales and biases the kernel runs, zero padded.
+            pc, po = self.channels[0] - cin, self.channels[1] - cout
+            q = F.pad(q, (0, 0, 0, 0, 0, pc, 0, po))
+            self.register_buffer("card_weight", q)
+            self.register_buffer("card_scale", F.pad(s, (0, po)))
+            self.register_buffer("card_bias", F.pad(bias, (0, po)))
+            self.register_buffer("packed_weight", k8.pack_weight(q))
+        else:
+            self.register_buffer("packed_weight", int8_gemm.gemm_weight(q))
         self.static = act_scale is not None
         if self.static:
             s_x = float(torch.tensor(act_scale, dtype=torch.float32))
@@ -125,56 +156,67 @@ class Int8Conv2d(nn.Module):
             self.register_buffer("act_mult", torch.tensor([reciprocal_f32(s_x)], device=dev))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.contiguous(memory_format=torch.channels_last)
+        x = x.contiguous(memory_format=k8.memory_format(x.dim()))
         if self.static:
             sx, qs = self.act_scale, self.act_mult
         else:
             sx = qs = activation_scale(x)
-        return k8.int8_conv(x, self.q_weight, self.packed_weight, self.weight_scale, self.bias,
-                            sx, qs, stride=self.stride, divide=not self.static,
-                            out_dtype=self.out_dtype)
+        if x.device.type == "cpu":
+            return k8.int8_conv_plain(x, self.q_weight, self.weight_scale, self.bias, sx, qs,
+                                      stride=self.stride, divide=not self.static,
+                                      out_dtype=self.out_dtype, dilation=self.dilation)
+        return self.on_card(x, sx, qs, divide=not self.static)
 
-
-def unsupported_convs(model: nn.Module) -> list:
-    """The convs of ``model`` that :class:`Int8Conv2d` does not run, as
-    ``"path: what"`` strings: 3-D convs and dilated convs.  (On the card
-    the kernel also needs Cin = 3 or a multiple of 8 and Cout a multiple
-    of 8; ``int8_conv`` raises at the call.)"""
-    out = []
-    for name, m in model.named_modules():
-        if isinstance(m, nn.Conv3d):
-            out.append(f"{name}: 3-D {'x'.join(map(str, m.kernel_size))}")
-        elif isinstance(m, nn.Conv2d) and m.dilation != (1, 1):
-            out.append(f"{name}: dilation {m.dilation[0]}")
-    return out
+    def on_card(self, x: torch.Tensor, sx: torch.Tensor, qs: torch.Tensor, *,
+                divide: bool) -> torch.Tensor:
+        """The conv of a channels-last tensor through its card route, with
+        the input scales ``sx`` and ``qs`` (:func:`~.kernels.int8_conv.int8_conv`'s);
+        on a CPU tensor the kernels' wrappers run their plain versions."""
+        kw = dict(stride=self.stride, divide=divide, out_dtype=self.out_dtype)
+        if self.route == "library":
+            return int8_gemm.int8_conv_im2col(x, self.q_weight, self.packed_weight,
+                                              self.weight_scale, self.bias, sx, qs,
+                                              dilation=self.dilation, **kw)
+        cin, cout = x.shape[1], self.q_weight.shape[0]
+        if self.channels[0] != cin:                         # zero input channels
+            n, _, h, w = x.shape
+            padded = x.new_zeros((n, h, w, self.channels[0])).permute(0, 3, 1, 2)
+            padded[:, :cin] = x
+            x = padded
+        y = k8.int8_conv(x, self.card_weight, self.packed_weight, self.card_scale,
+                         self.card_bias, sx, qs, **kw)
+        if self.channels[1] != cout:                        # drop the padded outputs
+            y = y[:, :cout].contiguous(memory_format=torch.channels_last)
+        return y
 
 
 def quantize_model(model: nn.Module, calib: "Mapping[str, float] | str | None" = None
                    ) -> nn.Module:
-    """Swap every ``SameConv2d`` of ``model`` for an :class:`Int8Conv2d`, in place.
+    """Swap every ``SameConv2d`` and ``SameConv3d`` of ``model`` for an
+    :class:`Int8Conv`, in place.
 
     The convs must still hold their float32 weights (call this before
     ``cast_convs``).  ``calib`` (a dict or a ``calib.json`` path) selects
     the static scheme for the convs it names; the rest run the dynamic
     scheme.  The output dtype is ``model.cfg.compute_dtype``.  Returns the
-    model.  Raises ``NotImplementedError`` if the model has a conv that
-    the int8 kernel does not take (:func:`unsupported_convs`).
+    model.
     """
-    missing = unsupported_convs(model)
-    if missing:
-        raise NotImplementedError(
-            "not served in int8 by the port yet: the int8 conv kernel takes 2-D undilated "
-            f"convs, and this model also has {missing}")
     if isinstance(calib, str):
         calib = load_calibration(calib)
     calib = calib or {}
     out_dtype = model.cfg.compute_dtype
     for name, m in list(model.named_modules()):
-        if isinstance(m, SameConv2d):
+        if isinstance(m, CONVS):
             parent, _, leaf = name.rpartition(".")
             owner = model.get_submodule(parent) if parent else model
-            setattr(owner, leaf, Int8Conv2d(m, out_dtype, calib.get(name.replace(".", "/"))))
+            setattr(owner, leaf, Int8Conv(m, out_dtype, calib.get(name.replace(".", "/"))))
     return model
+
+
+def routes(model: nn.Module) -> dict:
+    """``{conv path: "kernel" | "library"}`` of a quantized model's convs."""
+    return {name.replace(".", "/"): m.route for name, m in model.named_modules()
+            if isinstance(m, Int8Conv)}
 
 
 @torch.inference_mode()
@@ -194,7 +236,7 @@ def calibrate_activation_scales(model: nn.Module, batches: Iterable) -> dict:
         return rec
 
     handles = [m.register_forward_pre_hook(hook(name.replace(".", "/")))
-               for name, m in model.named_modules() if isinstance(m, SameConv2d)]
+               for name, m in model.named_modules() if isinstance(m, CONVS)]
     try:
         for batch in batches:
             model(*batch)

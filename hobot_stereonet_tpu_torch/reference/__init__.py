@@ -34,6 +34,16 @@ them.
     weights, under the same ``XLA_FLAGS``, with the default RGB
     preprocessing (as ``scripts/accuracy_stats.py`` evaluates CLASSIC):
     the same keys as ``flagship_outputs.npz``.
+  * ``classic_calib.json``: the JAX package's ``calibrate_activation_scales``
+    of CLASSIC with those weights over the calibration set of ``stereod
+    calibrate`` (8 synthetic frames at 256x512, seed 4242, RGB), one scale a
+    conv (53), keyed by flax path;
+  * ``classic_int8_outputs.npz``: the JAX package's CLASSIC run w8a8 in bf16
+    under the same ``XLA_FLAGS``, for each scheme ``dynamic`` and ``static``
+    (with ``classic_calib.json``): ``<scheme>_disparity`` [2, 256, 512] on
+    scenes :data:`SCENES`, ``<scheme>_720p_disparity`` on the frame of
+    :func:`frame_720p`, ``<scheme>_heldout_epe`` ([120]) and
+    ``<scheme>_heldout_d1`` over the held-out set.
 
   * ``flagship_train_step.npz`` and ``classic_train_step.npz``: one
     training step of the JAX package on the CPU under the same ``XLA_FLAGS``,
@@ -47,7 +57,8 @@ them.
 
 The flagship's files are written by ``python tests/test_torch_reference.py
 --write``, CLASSIC's by ``python tests/test_torch_classic_reference.py
---write``, the training steps by ``python tests/test_torch_train_reference.py
+--write`` and (int8) ``python tests/test_torch_classic_int8.py --write``,
+the training steps by ``python tests/test_torch_train_reference.py
 --write``; the same files' tests check on every run that they are still
 what the checkpoints and the JAX package give.
 """
@@ -64,6 +75,8 @@ OUTPUTS_NPZ = REF_DIR / "flagship_outputs.npz"
 INT8_OUTPUTS_NPZ = REF_DIR / "flagship_int8_outputs.npz"
 CLASSIC_PARAMS_NPZ = REF_DIR / "classic_params.npz"
 CLASSIC_OUTPUTS_NPZ = REF_DIR / "classic_outputs.npz"
+CLASSIC_CALIB_JSON = REF_DIR / "classic_calib.json"
+CLASSIC_INT8_OUTPUTS_NPZ = REF_DIR / "classic_int8_outputs.npz"
 # The flagship's calibrated activation scales, one per conv, keyed by flax path.
 CALIB_JSON = REF_DIR.parents[1] / "checkpoints" / "flagship" / "calib.json"
 INT8_SCHEMES = ("dynamic", "static")

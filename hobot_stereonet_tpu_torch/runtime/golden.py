@@ -11,12 +11,13 @@ reference's are, so a port dump and a JAX dump compare key by key.
 
 from __future__ import annotations
 
-import json
 import os
 from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..data.bintensor import load_bin_dir
 
 
 def _nhwc(t: torch.Tensor) -> np.ndarray:
@@ -145,35 +146,12 @@ def compare(
     return ok, report
 
 
-def _load_bin_dir(path: str) -> Dict[str, np.ndarray]:
-    """A directory of raw ``<name>.bin`` tensors, with shapes and dtypes
-    from its ``meta.json`` if present (else flat float32), names with
-    ``__`` read as ``/``."""
-    meta = {}
-    meta_path = os.path.join(path, "meta.json")
-    if os.path.isfile(meta_path):
-        with open(meta_path) as f:
-            meta = json.load(f)
-    out: Dict[str, np.ndarray] = {}
-    for fn in sorted(os.listdir(path)):
-        if not fn.endswith(".bin"):
-            continue
-        name = fn[: -len(".bin")]
-        raw = np.fromfile(os.path.join(path, fn), dtype=np.uint8)
-        m = meta.get(name)
-        if m is not None:
-            arr = raw.view(np.dtype(m["dtype"])).reshape(m["shape"])
-        else:
-            arr = raw.view(np.float32) if raw.size % 4 == 0 else raw
-        out[name.replace("__", "/")] = arr
-    return out
-
-
 def load_dump(path: str) -> Dict[str, np.ndarray]:
-    """Load a dump: an ``.npz``, a directory of raw ``.bin`` tensors, or one
-    raw ``.bin`` file (flat float32, keyed by its stem)."""
+    """Load a dump: an ``.npz``, a directory of raw ``.bin`` tensors
+    (``data.bintensor.load_bin_dir``, which ``dump --bin-out`` writes for), or
+    one raw ``.bin`` file (flat float32, keyed by its stem)."""
     if os.path.isdir(path):
-        return _load_bin_dir(path)
+        return load_bin_dir(path)
     if path.endswith(".bin"):
         raw = np.fromfile(path, dtype=np.uint8)
         arr = raw.view(np.float32) if raw.size % 4 == 0 else raw

@@ -332,11 +332,25 @@ def test_classic_engine_microbatch_and_built_model(classic_params, frames):
     assert built.model is eng.model
 
 
-def test_classic_int8_is_refused(classic_params):
+def test_classic_int8_engine_builds_and_serves(classic_params, frames):
+    """CLASSIC in int8 is no longer refused: its 3-D, dilated, Cout 1 and
+    Cout 12 convs are quantized too (``ops/quant.py``, tests/test_torch_classic_int8.py).
+    The engine builds in both schemes with every conv swapped and serves
+    finite disparities equal to its own int8 network's forward."""
+    from hobot_stereonet_tpu_torch.ops.quant import Int8Conv
+
     _, tcfg = _engine_configs()
+    batch = torch.from_numpy(frames[:1])
     for kw in (dict(int8=True), dict(static_quant={})):
-        with pytest.raises(NotImplementedError, match="ConvBlock3D_0.Conv_0: 3-D 3x3x3"):
-            StereoEngine(tcfg, params=classic_params, device="cpu", model="classic", **kw)
+        eng = StereoEngine(tcfg, params=classic_params, device="cpu", model="classic", **kw)
+        convs = [m for m in eng.model.modules() if isinstance(m, Int8Conv)]
+        assert len(convs) == 17 and not any(
+            isinstance(m, (torch.nn.Conv2d, torch.nn.Conv3d)) for m in eng.model.modules())
+        disp = eng.pipeline(batch)[0]
+        assert torch.isfinite(disp).all()
+        with torch.inference_mode():
+            want = eng._network(eng._ingest(batch))[0]
+        assert torch.equal(disp, want)
 
 
 def test_classic_evaluation_and_benchmark_surface(classic_params):

@@ -848,3 +848,168 @@ def test_group_norm_fused_gradients_on_the_card(device, dtype, skip):
         tol = (1e-5 if dtype == torch.float32 else 2 ** -7) * want.abs().max().item()
         torch.testing.assert_close(got, want, rtol=1e-5 if dtype == torch.float32 else 2 ** -7,
                                    atol=tol)
+
+
+# CLASSIC's convs that the int8 kernel does not take, at their 720p shapes with
+# a chunk of 2 frames: (N, Cin, Cout, kernel, dilation, spatial); a 3-D conv
+# where the spatial shape has three axes.
+CLASSIC_LIBRARY_SHAPES = [
+    (2, 32, 32, 3, 1, (24, 90, 160)), (2, 32, 1, 3, 1, (24, 90, 160)),
+    (2, 32, 32, 3, 2, (180, 320)), (2, 32, 32, 3, 4, (180, 320)), (2, 32, 32, 3, 8, (180, 320)),
+    (2, 32, 1, 3, 1, (180, 320)),
+    (2, 16, 16, 3, 2, (360, 640)), (2, 16, 16, 3, 4, (360, 640)), (2, 16, 16, 3, 8, (360, 640)),
+    (2, 16, 1, 3, 1, (360, 640)),
+    (2, 4, 12, 3, 1, (720, 1280)), (2, 12, 12, 3, 1, (720, 1280)), (2, 12, 12, 3, 2, (720, 1280)),
+    (2, 12, 12, 3, 4, (720, 1280)), (2, 12, 1, 3, 1, (720, 1280)),
+]
+
+
+@pytest.mark.parametrize("static", [False, True])
+@pytest.mark.parametrize("n,cin,cout,k,dilation,spatial", CLASSIC_LIBRARY_SHAPES)
+def test_int8_library_route_exact_at_classic_shapes(device, n, cin, cout, k, dilation, spatial,
+                                                    static):
+    """The library route (im2col, ``torch._int_mm``, the kernel's epilogue)
+    equals the plain version bit for bit at every CLASSIC conv shape the
+    kernel does not take."""
+    from hobot_stereonet_tpu_torch.ops import int8_gemm
+    from hobot_stereonet_tpu_torch.ops.kernels.int8_conv import kernel_takes, memory_format
+
+    rng = np.random.default_rng(9)
+    kernel = (k,) * len(spatial)
+    assert not kernel_takes(cin, cout, kernel, 1, dilation)
+    x = torch.from_numpy((2.0 * rng.standard_normal((n,) + spatial + (cin,))).astype(np.float32))
+    x = x.bfloat16().to(device).movedim(-1, 1)
+    assert x.is_contiguous(memory_format=memory_format(x.dim()))
+    q_w = torch.from_numpy(rng.integers(-127, 128, (cout, cin) + kernel, dtype=np.int8)).to(device)
+    s_k = torch.from_numpy(rng.uniform(1e-4, 1e-2, cout).astype(np.float32)).to(device)
+    bias = torch.from_numpy(rng.standard_normal(cout).astype(np.float32)).to(device)
+    if static:
+        sx = torch.tensor([0.05], device=device)
+        qs = torch.tensor([1.0], device=device) / sx
+    else:
+        sx = qs = torch.from_numpy(rng.uniform(0.01, 0.05, n).astype(np.float32)).to(device)
+    kw = dict(stride=1, dilation=dilation, divide=not static, out_dtype=torch.bfloat16)
+    n0, e0 = int8_gemm.calls["cuda"], build.launch_counts["int8_epilogue"]
+    got = int8_gemm.int8_conv_im2col(x, q_w, int8_gemm.gemm_weight(q_w), s_k, bias, sx, qs, **kw)
+    torch.cuda.synchronize()
+    assert int8_gemm.calls["cuda"] == n0 + 1
+    assert build.launch_counts["int8_epilogue"] == e0 + 1
+    want = int8_conv_plain(x, q_w, s_k, bias, sx, qs, **kw)
+    assert got.shape == want.shape == (n, cout) + spatial
+    assert got.is_contiguous(memory_format=memory_format(got.dim()))
+    assert torch.equal(got, want), (got.float() - want.float()).abs().max().item()
+
+
+# CLASSIC's undilated 2-D convs the kernel takes only zero padded (Cout 1
+# and 12 up to 8 and 16, Cin 12 up to 16), at their 720p shapes.
+CLASSIC_PADDED_SHAPES = [(2, 32, 1, (180, 320)), (2, 16, 1, (360, 640)),
+                         (2, 4, 12, (720, 1280)), (2, 12, 12, (720, 1280)),
+                         (2, 12, 1, (720, 1280))]
+
+
+@pytest.mark.parametrize("static", [False, True])
+@pytest.mark.parametrize("n,cin,cout,spatial", CLASSIC_PADDED_SHAPES)
+def test_int8_kernel_zero_padded_at_classic_shapes(device, n, cin, cout, spatial, static):
+    """``Int8Conv.on_card`` of a conv the kernel takes zero padded: one
+    kernel launch, the output unpadded and channels-last, bit for bit the
+    plain conv of the unpadded weights."""
+    from hobot_stereonet_tpu_torch.models.layers import SameConv2d
+    from hobot_stereonet_tpu_torch.ops.quant import Int8Conv, activation_scale
+
+    torch.manual_seed(3)
+    mod = Int8Conv(SameConv2d(cin, cout, 3), torch.bfloat16, 0.05 if static else None)
+    mod = mod.to(device)
+    assert mod.route == "kernel" and mod.channels != (cin, cout)
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy((2.0 * rng.standard_normal((n,) + spatial + (cin,))).astype(np.float32))
+    x = x.bfloat16().to(device).movedim(-1, 1)
+    sx, qs = (mod.act_scale, mod.act_mult) if static else (activation_scale(x),) * 2
+    n0 = build.launch_counts["int8_conv"]
+    got = mod.on_card(x, sx, qs, divide=not static)
+    torch.cuda.synchronize()
+    assert build.launch_counts["int8_conv"] == n0 + 1
+    want = int8_conv_plain(x, mod.q_weight, mod.weight_scale, mod.bias, sx, qs, stride=1,
+                           divide=not static, out_dtype=torch.bfloat16)
+    assert got.shape == want.shape == (n, cout) + spatial
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, want), (got.float() - want.float()).abs().max().item()
+
+
+@pytest.mark.parametrize("per_sample", [False, True])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows,per,ld,cout", [(2 * 921600, 921600, 16, 12),
+                                              (2 * 921600, 921600, 16, 1),
+                                              (3 * 45, 45, 40, 33)])
+def test_int8_epilogue_kernel_exact(device, rows, per, ld, cout, out_dtype, per_sample):
+    """The library route's epilogue kernel against its plain version
+    (``epilogue``, float64 with Knuth's TwoSum), bit for bit: random int32
+    products padded past Cout and the rows, per-sample or one scale, and a
+    value whose float64 sum lands on a float32 tie that the exact sum lies
+    above (``__fmaf_rn`` rounds once)."""
+    from hobot_stereonet_tpu_torch.ops.kernels.int8_conv import epilogue, int8_epilogue
+
+    rng = np.random.default_rng(11)
+    n = rows // per
+    acc = torch.from_numpy(rng.integers(-(1 << 21), 1 << 21, (rows + 5, ld), dtype=np.int32))
+    s_k = torch.from_numpy(rng.uniform(1e-7, 1e-3, cout).astype(np.float32))
+    bias = torch.from_numpy(rng.standard_normal(cout).astype(np.float32))
+    acc[0, 0], s_k[0], bias[0] = 4097, (1.0 + 2.0 ** -12) * 2.0 ** -12, 2.0 ** -60
+    sx = torch.from_numpy(rng.uniform(0.01, 0.05, n if per_sample else 1).astype(np.float32))
+    sx[0] = 1.0
+    acc, s_k, bias, sx = (t.to(device) for t in (acc, s_k, bias, sx))
+    e0 = build.launch_counts["int8_epilogue"]
+    got = int8_epilogue(acc, rows, cout, per, sx, s_k, bias, out_dtype)
+    want = epilogue(acc[:rows, :cout].float().view(n, per, cout), sx, s_k, bias, 2,
+                    out_dtype).view(rows, cout)
+    torch.cuda.synchronize()
+    assert build.launch_counts["int8_epilogue"] == e0 + 1
+    assert got.shape == (rows, cout) and got.is_contiguous()
+    assert torch.equal(got, want), (got.float() - want.float()).abs().max().item()
+
+
+@pytest.mark.parametrize("static", [False, True])
+@pytest.mark.parametrize("n,cout,h,w", [(2, 32, 180, 320), (2, 16, 360, 640), (3, 16, 17, 30)])
+def test_int8_conv_dense_path_at_cin_4(device, n, cout, h, w, static):
+    """The kernel's dense path at Cin 4 (CLASSIC's refinement inputs: the
+    disparity and the guide image), which the route sends to it: bit for
+    bit against the plain version."""
+    from hobot_stereonet_tpu_torch.ops.kernels.int8_conv import dense_input, kernel_takes
+
+    assert dense_input(4) and kernel_takes(4, cout, (3, 3), 1, 1)
+    rng = np.random.default_rng(8)
+    x, q_w, s_k, bias = _int8_case(rng, n, 4, cout, 3, h, w, torch.bfloat16, device)
+    if static:
+        sx = torch.tensor([0.05], device=device)
+        qs = torch.tensor([1.0], device=device) / sx
+    else:
+        sx = qs = torch.from_numpy(rng.uniform(0.01, 0.05, n).astype(np.float32)).to(device)
+    kw = dict(stride=1, divide=not static, out_dtype=torch.bfloat16)
+    got = int8_conv(x, q_w, pack_weight(q_w), s_k, bias, sx, qs, **kw)
+    want = int8_conv_plain(x, q_w, s_k, bias, sx, qs, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), (got.float() - want.float()).abs().max().item()
+
+
+def test_classic_int8_on_the_card_takes_both_routes(device):
+    """A small CLASSIC in int8 on the card: the kernel and the library route
+    both launched, finite disparities, a frame alone equal to the same frame
+    in the batch (per-sample scales, fixed summation orders)."""
+    from hobot_stereonet_tpu_torch.config import StereoNetConfig
+    from hobot_stereonet_tpu_torch.models import StereoNet
+    from hobot_stereonet_tpu_torch.ops import int8_gemm
+    from hobot_stereonet_tpu_torch.ops.quant import routes, serving_model
+
+    cfg = StereoNetConfig(downsample_factor=2, feature_channels=8, num_feature_res_blocks=1,
+                          num_aggregation_layers=1, aggregation_channels=8, max_disparity=16,
+                          refinement_scale_channels=(8, 4), refinement_scale_blocks=(3, 2))
+    torch.manual_seed(0)
+    net = serving_model(StereoNet(cfg, device=device), int8=True)
+    assert set(routes(net).values()) == {"kernel", "library"}
+    x = torch.rand((3, 64, 128, 3), device=device) * 2 - 1
+    n0, c0 = build.launch_counts["int8_conv"], int8_gemm.calls["cuda"]
+    with torch.inference_mode():
+        whole = net(x, torch.roll(x, -3, 2))["disparity"]
+        alone = net(x[1:2], torch.roll(x, -3, 2)[1:2])["disparity"]
+    torch.cuda.synchronize()
+    assert build.launch_counts["int8_conv"] > n0 and int8_gemm.calls["cuda"] > c0
+    assert torch.isfinite(whole).all() and torch.equal(whole[1:2], alone)

@@ -16,7 +16,9 @@ assert len(names) >= 20, names
 new = {"data.synthetic", "data.loader", "data.stream", "utils.profiling",
        "runtime.benchmark", "runtime.evaluate", "runtime.golden", "ops.quant",
        "ops.kernels.int8_conv", "ops.kernels.numerics", "runtime.training",
-       "runtime.train_loop", "runtime.checkpoint", "cli"}
+       "runtime.train_loop", "runtime.checkpoint", "cli", "ops.int8_gemm", "data.bintensor",
+       "data.sceneflow", "data.kitti", "runtime.hostio", "viz.colormap", "viz.server",
+       "utils.debug"}
 missing = {pkg.__name__ + "." + n for n in new} - set(names)
 assert not missing, missing
 assert not bad, bad

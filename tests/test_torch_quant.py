@@ -1,7 +1,7 @@
 """The port's w8a8 int8 path (``ops/quant.py``) against the JAX package's
 (``hobot_stereonet_tpu/ops/quant.py``), on the CPU.
 
-Bit for bit: the weight and activation quantizers, one ``Int8Conv2d`` fed
+Bit for bit: the weight and activation quantizers, one ``Int8Conv`` fed
 JAX's own input (both schemes, strides 1 and 2, Cin 3, 32 and 56, float32
 and bf16 compute), the calibration round trip, and a frame alone against
 the same frame in a batch.  The port computes what XLA compiles the JAX
@@ -112,7 +112,7 @@ class _OneConv(nn.Module):
 @pytest.mark.parametrize("cin,cout,k,stride", [(3, 32, 5, 2), (32, 32, 3, 1), (56, 64, 3, 1),
                                                (32, 32, 5, 2), (64, 24, 3, 1)])
 def test_int8_conv_bit_equal_to_jax(rng, cin, cout, k, stride, dtype, static):
-    """``Int8Conv2d`` fed JAX's own input against ``_int8_conv`` (dynamic,
+    """``Int8Conv`` fed JAX's own input against ``_int8_conv`` (dynamic,
     inside ``quantized_apply``) or ``_int8_conv_static`` (inside
     ``static_quantized_apply`` with ``bake_weights``).  The first conv
     (Cin 3) takes the float32 model input, the others the compute dtype."""
@@ -135,7 +135,7 @@ def test_int8_conv_bit_equal_to_jax(rng, cin, cout, k, stride, dtype, static):
     conv = SameConv2d(cin, cout, k, stride)
     conv.load_state_dict({"weight": torch.from_numpy(kernel.transpose(3, 2, 0, 1).copy()),
                           "bias": torch.from_numpy(bias)})
-    mod = tq.Int8Conv2d(conv, tdt, s_x if static else None)
+    mod = tq.Int8Conv(conv, tdt, s_x if static else None)
     xt = torch.from_numpy(np.array(x.astype(jnp.float32))).to(x.dtype == jnp.float32
                                                                  and torch.float32 or tdt)
     build.reset_launch_counts()
@@ -233,7 +233,7 @@ def test_quantize_model_swaps_every_flagship_conv(flagship, calib):
     assert _conv_keys(net) == sorted(calib)
     tq.quantize_model(net, str(CALIB_JSON))
     mods = {n.replace(".", "/"): m for n, m in net.named_modules()
-            if isinstance(m, tq.Int8Conv2d)}
+            if isinstance(m, tq.Int8Conv)}
     assert sorted(mods) == sorted(calib) and all(m.static for m in mods.values())
     assert not any(isinstance(m, SameConv2d) for m in net.modules())
     for key, m in mods.items():
@@ -242,7 +242,7 @@ def test_quantize_model_swaps_every_flagship_conv(flagship, calib):
     partial = {k: v for k, v in calib.items() if not k.startswith("FeatureTower_0")}
     net = tq.quantize_model(FastStereoNet(cfg, device="cpu"), partial)
     static = {n.replace(".", "/"): m.static for n, m in net.named_modules()
-              if isinstance(m, tq.Int8Conv2d)}
+              if isinstance(m, tq.Int8Conv)}
     assert static == {k: k in partial for k in calib}
     bf16 = FastStereoNet(cfg, device="cpu").to(torch.bfloat16)
     with pytest.raises(TypeError, match="float32"):
