@@ -31,7 +31,9 @@ Phases, each printed with its elapsed seconds:
      bound, ATen's ``F.group_norm`` on
      the same input with the float32 casts (the library call, never called
      by the port) and the unfused sequence the blocks ran before (bias add,
-     the plain entry, residual add, LeakyReLU);
+     the plain entry, residual add, LeakyReLU); the float32 cases run in
+     phase 13, beside its commands, their batches of 1 and 8 the first
+     samples of the batch of 32;
   4. reference: the flagship network in float32 on the card (through the
      kernels) against the same weights on the CPU (plain versions), on a
      small input;
@@ -147,7 +149,33 @@ Phases, each printed with its elapsed seconds:
      --ring`` (started first: its frames render on the host for about a
      second each), whose frames must ride the natively built host ring
      (``build/hostio``); ``dump`` twice and ``compare`` where
-     :data:`CARD_HAS_PIL`.
+     :data:`CARD_HAS_PIL`.  Beside them run phase 3's float32 GroupNorm
+     checks, phase 15's ``slam`` commands, phase 14's artifact loaders and
+     ``stream --artifact`` and ``infer --artifact`` on its bf16 artifact.
+ 14. the compiled artifact (``runtime/artifact.py``): the CLI's ``export`` of
+     the flagship (its config and committed weights, 1280x720, buckets 1 and
+     8, platform cuda) in bf16 and in int8 static (``calib.json``), two
+     processes beside the build, waited for before phase 3 times
+     anything; each artifact loaded in a fresh process that cannot import
+     the networks' code (beside phase 13's commands), where every entry
+     (nv12 and rgb, each bucket) launches a call the flagship's kernels
+     (ingest 1, correlation 1, soft-argmin 1, GroupNorm 25, int8 conv 28 in
+     int8; rgb: no ingest), one launch for each ``hst::`` operator of its
+     graph, and ``ArtifactEngine`` serves 32 frames; each entry equals
+     ``StereoEngine`` here bit for bit; ``ArtifactEngine`` against
+     ``StereoEngine`` in bf16 at batch 1 and 8 on host frames, alone on the
+     card: 2 rounds of 192 (batch 1) or 384 (batch 8) frames an engine, the
+     two in turns, each round's frames/s
+     (``scripts/torch_artifact_overhead.py`` runs 5 rounds of 512 and 1024,
+     bf16 and int8 static);
+ 15. SLAM (``slam/``): the CLI's ``slam`` at its defaults (network disparity,
+     the flagship's weights), with ``--gt-disparity`` (ATE under 0.05 m), with
+     ``--loop-closure --confidence-gate 0.5``, and ``--odometry-root`` over an
+     EuRoC-layout sequence the script writes: exit 0, never lost, an ATE
+     each; ``StereoSLAM`` (tracking, windowed BA, loop closure) on the card
+     against the CPU on the CPU tests' run (every frame's camera centre
+     within 1e-4 m, the BA costs within 1e-4 relative); TF32 read off
+     at each of the geometry's solves on the card with TF32 on outside.
 
 Phases 5, 7, 8, 10, 11, 11b and 12 reset the kernels' launch counts just before they
 drive their path and fail if a kernel of it was not launched (the GroupNorm
@@ -232,6 +260,28 @@ CLASSIC_INT8_MEDIAN_PX, CLASSIC_INT8_OVER_1PX, CLASSIC_INT8_MAX_PX = 0.15, 0.015
 CARD_HAS_PIL = True
 # A command's disparity statistics against the same engine call in this process.
 CLI_ENGINE_PX = 1e-3
+# The artifact phase: buckets, frames served, and each entry's launches a call
+# by kernel (the flagship: 25 GroupNorms, 28 convs in int8; the rgb entries
+# have no ingest kernel).
+ARTIFACT_BUCKETS = (1, 8)
+ARTIFACT_FRAMES = 32
+# ArtifactEngine against StereoEngine: frames an engine serves in a round, by
+# batch, and the rounds (32-frame runs spread about twofold from run to run).
+ARTIFACT_FPS_FRAMES, ARTIFACT_FPS_ROUNDS = {1: 192, 8: 384}, 2
+ARTIFACT_LAUNCHES = {"nv12_ingest": 1, "correlation": 1, "soft_argmin": 1, "group_norm": 25}
+ARTIFACT_INT8_CONVS = 28
+# hst:: custom operators by the kernel each launches.
+OP_KERNELS = {"nv12_sbs_preprocess": "nv12_ingest", "correlation_volume": "correlation",
+              "soft_argmin_confidence": "soft_argmin", "soft_argmin_cost": "soft_argmin_cost",
+              "group_norm_fused": "group_norm", "int8_conv": "int8_conv",
+              "int8_epilogue": "int8_epilogue"}
+# SLAM: the CPU tests' bound on the ATE on ground-truth disparity
+# (tests/test_torch_slam_e2e.py), 0.05 m.  The card against the CPU on the same
+# run: each frame's camera centre within 1e-4 m and each BA cost within 1e-4
+# relative.  Both run the same float32 algorithm; only the rounding of the
+# devices' reductions and solves differs (the two ATEs were 4e-9 m apart on an
+# NVIDIA H100 80GB HBM3, PERF.md, PR 15), far below a centimetre-scale ATE.
+SLAM_ATE_M, SLAM_CENTRE_TO_CPU_M, SLAM_COST_TO_CPU = 0.05, 1e-4, 1e-4
 
 
 def phase(msg: str) -> None:
@@ -508,17 +558,20 @@ def _plain_by_chunks(fn, x, *rest, chunks: int = 4):
     return tuple(torch.cat(ts) for ts in zip(*outs))
 
 
-def group_norm_phase(dev, census, flush, card) -> list:
+def group_norm_phase(dev, census, flush, card, dtype) -> list:
     """The GroupNorm kernel against its plain version, bit for bit (output,
     mean and rstd), at every shape of ``census`` and batch of
     :data:`GN_BATCHES`, through both entries: the plain GroupNorm, and the
     fused one with the conv bias, the skip and the LeakyReLU (and its
-    int8 form, without the bias, and without the skip), in bf16 and
-    float32, in the mode the launch chooses and in the other.  The bf16
+    int8 form, without the bias, and without the skip), in ``dtype`` (bf16
+    or float32), in the mode the launch chooses and in the other.  The bf16
     cases timed beside the byte bound (inputs read once, outputs written
     once), ATen's ``F.group_norm`` with the float32 casts, and the unfused
     sequence the blocks ran before (bias add, the plain entry, residual
-    add, LeakyReLU)."""
+    add, LeakyReLU).  float32 runs on no serving path: its cases are
+    checked, not timed, and its smaller batches are the first samples of
+    the largest, held to the same plain result (the plain version is per
+    sample), which phase 13 runs beside its commands."""
     import torch
     import torch.nn.functional as F
 
@@ -537,113 +590,120 @@ def group_norm_phase(dev, census, flush, card) -> list:
         cb = torch.rand(c, device=dev, generator=gen) * 4 - 2
         fmt = torch.channels_last_3d if len(spatial) == 3 else torch.channels_last
         view = (1, -1) + (1,) * len(spatial)
-        # float32 runs on no serving path: its cases are checked, not timed.
-        for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
-            for b in GN_BATCHES:
-                n = mult * b
-                x = (torch.randn((n, c) + spatial, device=dev, generator=gen) * 3 + 1).to(dtype)
-                x = x.contiguous(memory_format=fmt)
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        plain = None                             # float32: the largest batch's plain result
+        for b in (sorted(GN_BATCHES, reverse=True) if tag == "f32" else GN_BATCHES):
+            n = mult * b
+            if plain is None:
+                x = (torch.randn((n, c) + spatial, device=dev, generator=gen) * 3 + 1)
+                x = x.to(dtype).contiguous(memory_format=fmt)
                 sk = torch.randn((n, c) + spatial, device=dev, generator=gen).to(dtype)
                 sk = sk.contiguous(memory_format=fmt)
                 a = x + cb.to(dtype).view(view)
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
                 start.record()
-                want, w_mean, w_rstd = _plain_by_chunks(kg.group_norm_plain, x, g, w, bias, GN_EPS)
+                want, w_mean, w_rstd = _plain_by_chunks(kg.group_norm_plain, x, g, w, bias,
+                                                        GN_EPS)
                 end.record()
                 torch.cuda.synchronize()
                 plain_ms = start.elapsed_time(end)
-                want_a, a_mean, a_rstd = _plain_by_chunks(kg.group_norm_plain, a, g, w, bias,
-                                                          GN_EPS)
-                # The launch's own mode (walk in order or scan, from N * C) and the other.
-                in_order = kg.walks_in_order(n, c)
-                mode, other = ("walk in order", "scan") if in_order else ("scan", "walk in order")
-                checks = {
-                    "plain entry": (kg._group_norm_cuda(x, g, w, bias, GN_EPS),
-                                    (want, w_mean, w_rstd)),
-                    f"plain entry, {other}": (
-                        kg._launch(x, g, w, bias, GN_EPS, None, None, False,
-                                   sequential=not in_order)[:3], (want, w_mean, w_rstd)),
-                    "fused, bias + skip": (
-                        kg._group_norm_cuda(x, g, w, bias, GN_EPS, conv_bias=cb, skip=sk,
-                                            activate=True),
-                        (kg.leaky_relu(sk + want_a), a_mean, a_rstd)),
-                    f"fused, bias + skip, {other}": (
-                        kg._launch(x, g, w, bias, GN_EPS, cb, sk, True,
-                                   sequential=not in_order)[:3],
-                        (kg.leaky_relu(sk + want_a), a_mean, a_rstd)),
-                    "fused, bias": (
-                        kg._group_norm_cuda(x, g, w, bias, GN_EPS, conv_bias=cb, activate=True),
-                        (kg.leaky_relu(want_a), a_mean, a_rstd)),
-                    "fused, int8 form (no bias) + skip": (
-                        kg._group_norm_cuda(x, g, w, bias, GN_EPS, skip=sk, activate=True),
-                        (kg.leaky_relu(sk + want), w_mean, w_rstd)),
-                }
-                torch.cuda.synchronize()
-                for label, (got, exp) in checks.items():
-                    if not all(torch.equal(u, v) for u, v in zip(got, exp)):
-                        raise AssertionError(
-                            f"group_norm {label} {n}x{c}x{spatial} {tag} differs from its plain "
-                            f"version: bit-equal {float((got[0] == exp[0]).float().mean())}, "
-                            f"statistics equal {torch.equal(got[1], exp[1])} / "
-                            f"{torch.equal(got[2], exp[2])}")
-                err = max((got[0].float() - exp[0].float()).abs().max().item()
-                          for got, exp in checks.values())
-                del want, want_a, checks
-                shape = f"{n}x{c}x{'x'.join(map(str, spatial))}"
-                if dtype == torch.float32:
-                    phase(f"kernel group_norm [{shape}] f32 B={b}: exact, plain entry and fused "
-                          f"(bias + skip, bias, no bias + skip), {mode} and {other} (not timed)")
-                    del x, sk, a
-                    continue
-                elems = x.numel()
-                esize = x.element_size()
-                iters = 10 if elems > 2e8 else 30
-                ms = median_ms(lambda: kg.group_norm(x, g, w, bias, GN_EPS), flush, iters=iters)
-                fused_ms = median_ms(lambda: kg.group_norm_fused(
-                    x, g, w, bias, GN_EPS, conv_bias=cb, skip=sk, activate=True), flush,
-                    iters=iters)
-                fused_noskip_ms = median_ms(lambda: kg.group_norm_fused(
-                    x, g, w, bias, GN_EPS, conv_bias=cb, activate=True), flush, iters=iters)
-                lib_ms = median_ms(lambda: F.group_norm(x.float(), g, w, bias, GN_EPS).to(dtype),
-                                   flush, iters=iters)
-                seq_ms = median_ms(lambda: kg.leaky_relu(sk + kg.group_norm(
-                    x + cb.to(dtype).view(view), g, w, bias, GN_EPS)), flush, iters=iters)
-                # One fused call's six phases (kernel diagnostics: block 0's clock).
-                clock = torch.zeros(9, dtype=torch.int64, device=dev)
-                kg._launch(x, g, w, bias, GN_EPS, cb, sk, True, clock=clock)
-                clock = clock.tolist()
-                phases_us = [round((b_ - a_) / 1e3, 1) for a_, b_ in zip(clock[:6], clock[1:7])]
-                # Launch counts by shape and form (group_norm_shapes).
-                key = (n, c, spatial)
-                common = dict(name=kg.NAME, shape=shape, batch=b, per_forward=per_net,
-                              tolerance="exact (output, mean, rstd)", max_abs_err=err,
-                              plain_ms=plain_ms, **src)
-                rows.append(dict(common, mode=f"plain entry, {tag}, {mode}", ms=ms,
-                                 library_ms=lib_ms, key=key + ("plain",),
-                                 bound=bound(2.0 * esize * elems, 8.0 * elems)))
-                rows.append(dict(common, mode=f"fused bias + skip + LeakyReLU, {tag}, {mode}",
-                                 ms=fused_ms, library_ms=None, unfused_ms=seq_ms,
-                                 key=key + ("skip",),
-                                 bound=bound(3.0 * esize * elems, 12.0 * elems)))
-                rows.append(dict(common, mode=f"fused bias + LeakyReLU, {tag}, {mode}",
-                                 ms=fused_noskip_ms, library_ms=None, key=key + ("no skip",),
-                                 bound=bound(2.0 * esize * elems, 10.0 * elems)))
-                r0, r1, r2 = rows[-3:]
-                phase(f"kernel group_norm [{shape}] {tag} (per forward {per_net}) B={b}: exact, "
-                      f"plain entry and fused (bias + skip, bias, no bias + skip), {mode} and "
-                      f"{other}; plain entry {ms:.4f} ms (bound {r0['bound'][0]:.4f}, "
-                      f"{100 * r0['bound'][0] / ms:.0f}%), ATen F.group_norm with the float32 "
-                      f"casts {lib_ms:.4f} ms (kernel / "
-                      f"ATen {ms / lib_ms:.3f}); fused with skip {fused_ms:.4f} ms (bound "
-                      f"{r1['bound'][0]:.4f}, {100 * r1['bound'][0] / fused_ms:.0f}%), the "
-                      f"unfused sequence {seq_ms:.4f} ms; fused without skip "
-                      f"{fused_noskip_ms:.4f} ms (bound {r2['bound'][0]:.4f}, "
-                      f"{100 * r2['bound'][0] / fused_noskip_ms:.0f}%); plain version "
-                      f"{plain_ms:.1f} ms; fused call's phases (sums, prediction, maps, ordered "
-                      f"walk, statistics, output) {phases_us} us, {clock[7]} windows and "
-                      f"{clock[8]} segments stepped alone in its ordered walk; {card}")
+                want_a, a_mean, a_rstd = _plain_by_chunks(kg.group_norm_plain, a, g, w,
+                                                          bias, GN_EPS)
+                if tag == "f32":
+                    plain = (x, sk, a, want, w_mean, w_rstd, want_a, a_mean, a_rstd)
+            else:
+                x, sk, a, want, w_mean, w_rstd, want_a, a_mean, a_rstd = (
+                    t[:n] for t in plain)
+            # The launch's own mode (walk in order or scan, from N * C) and the other.
+            in_order = kg.walks_in_order(n, c)
+            mode, other = ("walk in order", "scan") if in_order else ("scan", "walk in order")
+            checks = {
+                "plain entry": (kg._group_norm_cuda(x, g, w, bias, GN_EPS),
+                                (want, w_mean, w_rstd)),
+                f"plain entry, {other}": (
+                    kg._launch(x, g, w, bias, GN_EPS, None, None, False,
+                               sequential=not in_order)[:3], (want, w_mean, w_rstd)),
+                "fused, bias + skip": (
+                    kg._group_norm_cuda(x, g, w, bias, GN_EPS, conv_bias=cb, skip=sk,
+                                        activate=True),
+                    (kg.leaky_relu(sk + want_a), a_mean, a_rstd)),
+                f"fused, bias + skip, {other}": (
+                    kg._launch(x, g, w, bias, GN_EPS, cb, sk, True,
+                               sequential=not in_order)[:3],
+                    (kg.leaky_relu(sk + want_a), a_mean, a_rstd)),
+                "fused, bias": (
+                    kg._group_norm_cuda(x, g, w, bias, GN_EPS, conv_bias=cb, activate=True),
+                    (kg.leaky_relu(want_a), a_mean, a_rstd)),
+                "fused, int8 form (no bias) + skip": (
+                    kg._group_norm_cuda(x, g, w, bias, GN_EPS, skip=sk, activate=True),
+                    (kg.leaky_relu(sk + want), w_mean, w_rstd)),
+            }
+            torch.cuda.synchronize()
+            for label, (got, exp) in checks.items():
+                if not all(torch.equal(u, v) for u, v in zip(got, exp)):
+                    raise AssertionError(
+                        f"group_norm {label} {n}x{c}x{spatial} {tag} differs from its plain "
+                        f"version: bit-equal {float((got[0] == exp[0]).float().mean())}, "
+                        f"statistics equal {torch.equal(got[1], exp[1])} / "
+                        f"{torch.equal(got[2], exp[2])}")
+            err = max((got[0].float() - exp[0].float()).abs().max().item()
+                      for got, exp in checks.values())
+            del want, want_a, checks
+            shape = f"{n}x{c}x{'x'.join(map(str, spatial))}"
+            if dtype == torch.float32:
+                phase(f"kernel group_norm [{shape}] f32 B={b}: exact, plain entry and fused "
+                      f"(bias + skip, bias, no bias + skip), {mode} and {other} (not timed)")
                 del x, sk, a
+                continue
+            elems = x.numel()
+            esize = x.element_size()
+            iters = 10 if elems > 2e8 else 30
+            ms = median_ms(lambda: kg.group_norm(x, g, w, bias, GN_EPS), flush, iters=iters)
+            fused_ms = median_ms(lambda: kg.group_norm_fused(
+                x, g, w, bias, GN_EPS, conv_bias=cb, skip=sk, activate=True), flush,
+                iters=iters)
+            fused_noskip_ms = median_ms(lambda: kg.group_norm_fused(
+                x, g, w, bias, GN_EPS, conv_bias=cb, activate=True), flush, iters=iters)
+            lib_ms = median_ms(lambda: F.group_norm(x.float(), g, w, bias, GN_EPS).to(dtype),
+                               flush, iters=iters)
+            seq_ms = median_ms(lambda: kg.leaky_relu(sk + kg.group_norm(
+                x + cb.to(dtype).view(view), g, w, bias, GN_EPS)), flush, iters=iters)
+            # One fused call's six phases (kernel diagnostics: block 0's clock).
+            clock = torch.zeros(9, dtype=torch.int64, device=dev)
+            kg._launch(x, g, w, bias, GN_EPS, cb, sk, True, clock=clock)
+            clock = clock.tolist()
+            phases_us = [round((b_ - a_) / 1e3, 1) for a_, b_ in zip(clock[:6], clock[1:7])]
+            # Launch counts by shape and form (group_norm_shapes).
+            key = (n, c, spatial)
+            common = dict(name=kg.NAME, shape=shape, batch=b, per_forward=per_net,
+                          tolerance="exact (output, mean, rstd)", max_abs_err=err,
+                          plain_ms=plain_ms, **src)
+            rows.append(dict(common, mode=f"plain entry, {tag}, {mode}", ms=ms,
+                             library_ms=lib_ms, key=key + ("plain",),
+                             bound=bound(2.0 * esize * elems, 8.0 * elems)))
+            rows.append(dict(common, mode=f"fused bias + skip + LeakyReLU, {tag}, {mode}",
+                             ms=fused_ms, library_ms=None, unfused_ms=seq_ms,
+                             key=key + ("skip",),
+                             bound=bound(3.0 * esize * elems, 12.0 * elems)))
+            rows.append(dict(common, mode=f"fused bias + LeakyReLU, {tag}, {mode}",
+                             ms=fused_noskip_ms, library_ms=None, key=key + ("no skip",),
+                             bound=bound(2.0 * esize * elems, 10.0 * elems)))
+            r0, r1, r2 = rows[-3:]
+            phase(f"kernel group_norm [{shape}] {tag} (per forward {per_net}) B={b}: exact, "
+                  f"plain entry and fused (bias + skip, bias, no bias + skip), {mode} and "
+                  f"{other}; plain entry {ms:.4f} ms (bound {r0['bound'][0]:.4f}, "
+                  f"{100 * r0['bound'][0] / ms:.0f}%), ATen F.group_norm with the float32 "
+                  f"casts {lib_ms:.4f} ms (kernel / "
+                  f"ATen {ms / lib_ms:.3f}); fused with skip {fused_ms:.4f} ms (bound "
+                  f"{r1['bound'][0]:.4f}, {100 * r1['bound'][0] / fused_ms:.0f}%), the "
+                  f"unfused sequence {seq_ms:.4f} ms; fused without skip "
+                  f"{fused_noskip_ms:.4f} ms (bound {r2['bound'][0]:.4f}, "
+                  f"{100 * r2['bound'][0] / fused_noskip_ms:.0f}%); plain version "
+                  f"{plain_ms:.1f} ms; fused call's phases (sums, prediction, maps, ordered "
+                  f"walk, statistics, output) {phases_us} us, {clock[7]} windows and "
+                  f"{clock[8]} segments stepped alone in its ordered walk; {card}")
+            del x, sk, a
         torch.cuda.empty_cache()
     return rows
 
@@ -2034,6 +2094,14 @@ def cli_phase(ctx: dict) -> None:
                                        "--bin-out", str(out / "b_bin")]
     stream = start_cli("stream", "--frames", "64", "--unpaced", "--ring")
     procs = {name: start_cli(*args) for name, args in commands.items()}
+    slam, loaders = slam_clis(), artifact_loaders(ctx)
+    beside = artifact_clis(ctx, out)
+    # Phase 3's float32 GroupNorm cases (checked, not timed) run here, beside
+    # these processes; no timing runs until bench.
+    t3 = time.monotonic()
+    group_norm_phase(dev, ctx["census"], None, ctx["card"], torch.float32)
+    phase(f"groupnorm: the float32 cases exact, beside the commands "
+          f"({time.monotonic() - t3:.1f} s)")
     got = {name: finish_cli(name, proc) for name, proc in procs.items()}
     after = {"eval classic --int8-calib (calibrated here)":
              layered + classic + ["--int8-calib", str(out / "classic_calib.json")]}
@@ -2042,6 +2110,10 @@ def cli_phase(ctx: dict) -> None:
     procs = {name: start_cli(*args) for name, args in after.items()}
     got.update({name: finish_cli(name, proc) for name, proc in procs.items()})
     got["stream --frames 64 --unpaced --ring"] = finish_cli("stream", stream)
+    ctx["slam_lines"] = {name: finish_cli(name, proc) for name, proc in slam.items()}
+    ctx["loader_reports"] = {name: finish_cli(f"artifact loader {name}", proc)
+                             for name, proc in loaders.items()}
+    ctx["artifact_lines"] = {name: finish_cli(name, proc) for name, proc in beside.items()}
     got["bench --streaming"] = finish_cli("bench", start_cli("bench", "--streaming"))
     for name, line in got.items():
         phase(f"cli {name}: {json.dumps(line)[:400]}")
@@ -2081,7 +2153,328 @@ def cli_phase(ctx: dict) -> None:
     if got["bench --streaming"]["value"] <= 0:
         raise AssertionError(f"cli bench: {got['bench --streaming']}")
     phase(f"cli: {len(got)} commands, each exit 0 with its JSON line; the stream's frames "
-          f"carried by the native host ring ({time.monotonic() - t:.1f} s)")
+          f"carried by the native host ring; beside them {len(slam)} slam runs, "
+          f"{len(loaders)} artifact loaders and {len(beside)} commands on the artifact, checked "
+          f"in phases 15 and 14 ({time.monotonic() - t:.1f} s)")
+
+
+# Run in a fresh process that cannot import the networks' code: load an
+# artifact on the card, run each entry on the given inputs (launch counts a
+# call, against the custom operators in the entry's graph), then serve 32
+# frames through ArtifactEngine (equal to the largest entry's output).
+ARTIFACT_LOADER = r"""
+import collections, importlib.abc, json, sys, time
+class NoModels(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.startswith("hobot_stereonet_tpu_torch.models"):
+            raise ImportError("the artifact loader may not import " + name)
+        return None
+sys.meta_path.insert(0, NoModels())
+import numpy as np
+import torch
+from hobot_stereonet_tpu_torch.data.stream import Frame
+from hobot_stereonet_tpu_torch.ops.kernels import build
+from hobot_stereonet_tpu_torch.runtime.artifact import ArtifactEngine, CompiledStereoArtifact
+path, inputs, out_path, n_frames = sys.argv[1], sys.argv[2], sys.argv[3], int(sys.argv[4])
+data = np.load(inputs)
+sbs, left, right = data["sbs"], data["left"], data["right"]
+t = time.monotonic()
+art = CompiledStereoArtifact(path)
+h, w = art.height, art.width
+report = {"load_s": time.monotonic() - t, "entries": {}}
+outs = {}
+for kind in ("nv12", "rgb"):
+    for b in art.buckets:
+        t = time.monotonic()
+        graph = art._entry(kind, b).graph
+        load_s = time.monotonic() - t
+        ops = collections.Counter(str(n.target).split(".")[1] for n in graph.nodes
+                                  if n.op == "call_function" and str(n.target).startswith("hst."))
+        for _ in range(2):            # the second call is the one counted
+            build.reset_launch_counts()
+            if kind == "nv12":
+                d, z = art.run_nv12(sbs[:b])
+                outs[f"nv12_b{b}_depth"] = z
+            else:
+                d = art.infer(left[:b], right[:b])
+            torch.cuda.synchronize()
+        outs[f"{kind}_b{b}_disparity"] = d
+        report["entries"][f"{kind}_b{b}"] = dict(launches=dict(build.launch_counts),
+                                                 ops=dict(ops), load_s=load_s)
+b = max(art.buckets)
+eng = ArtifactEngine(art, drop_on_full=False)
+for i in range(n_frames):
+    eng.feed(Frame(time.monotonic(), sbs[i % len(sbs)], h, 2 * w, index=i))
+eng.start()
+eng.drain(timeout=120.0)
+res = sorted(eng.results(timeout=0.5), key=lambda r: r.index)
+eng.stop()
+assert len(res) == n_frames and not eng.metrics.nan_dropped, (len(res), eng.metrics.snapshot())
+for r in res:
+    assert np.array_equal(r.disparity, outs[f"nv12_b{b}_disparity"][r.index % b])
+report["served"] = len(res)
+assert not any(m.startswith("hobot_stereonet_tpu_torch.models") for m in sys.modules)
+np.savez(out_path, **outs)
+print(json.dumps(report))
+"""
+
+
+def artifact_exports() -> dict:
+    """Start the CLI's ``export`` of the flagship (its config and committed
+    weights, 1280x720, buckets 1 and 8, platform cuda) in bf16 and in int8
+    static, two processes at once, beside the build (an export traces the
+    graph and launches no kernel); ``main`` waits for them before phase 3
+    times anything.  Returns each artifact's path and its process."""
+    from hobot_stereonet_tpu_torch import reference
+
+    out = ROOT / "build" / "artifact"
+    out.mkdir(parents=True, exist_ok=True)
+    base = ["export", "--config", str(ROOT / "checkpoints" / "flagship" / "config.json"),
+            "--checkpoint", str(reference.PARAMS_NPZ),
+            "--buckets", ",".join(map(str, ARTIFACT_BUCKETS)), "--platforms", "cuda"]
+    return {"bf16": (out / "bf16.stereoblob",
+                     start_cli(*base, "--out", str(out / "bf16.stereoblob"))),
+            "int8 static": (out / "int8_static.stereoblob",
+                            start_cli(*base, "--out", str(out / "int8_static.stereoblob"),
+                                      "--int8-calib", str(reference.CALIB_JSON)))}
+
+
+def artifact_loaders(ctx: dict) -> dict:
+    """Start the loaders (:data:`ARTIFACT_LOADER`), one process for each
+    exported artifact, on frames and images written here; phase 14 reads
+    their reports."""
+    import numpy as np
+
+    out = ROOT / "build" / "artifact"
+    rng = np.random.default_rng(14)
+    b_max = max(ARTIFACT_BUCKETS)
+    np.savez(out / "inputs.npz", sbs=rng.integers(0, 256, (b_max, 3 * H * W), dtype=np.uint8),
+             left=rng.integers(0, 256, (b_max, H, W, 3), dtype=np.uint8),
+             right=rng.integers(0, 256, (b_max, H, W, 3), dtype=np.uint8))
+    return {name: subprocess.Popen(
+        [sys.executable, "-c", ARTIFACT_LOADER, str(path), str(out / "inputs.npz"),
+         str(out / f"{name.replace(' ', '_')}_outputs.npz"), str(ARTIFACT_FRAMES)],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        preexec_fn=_die_with_parent) for name, (path, _) in ctx["exports"].items()}
+
+
+def artifact_phase(ctx: dict) -> None:
+    """Phase 14: the compiled artifact.  The exports (run beside the build)
+    exited 0; each artifact's loader, a fresh process that cannot
+    import the networks' code (:data:`ARTIFACT_LOADER`, run beside phase
+    13's commands), found each entry's launches a call to be the
+    flagship's kernels and the graph's ``hst::`` operators one launch each
+    (so no plain version ran), and served 32 frames; here each entry's
+    outputs must equal ``StereoEngine.pipeline`` bit for bit (the rgb
+    entries the network on the same batch), and ``ArtifactEngine`` and
+    ``StereoEngine`` serve host frames in bf16 at each bucket in turns
+    (``runtime.benchmark.fps_in_turns``), nothing else on the card."""
+    import numpy as np
+    import torch
+
+    from hobot_stereonet_tpu_torch import reference
+    from hobot_stereonet_tpu_torch.ops import preprocess as pp
+    from hobot_stereonet_tpu_torch.runtime.artifact import ArtifactEngine, CompiledStereoArtifact
+    from hobot_stereonet_tpu_torch.runtime.benchmark import fps_in_turns
+    from hobot_stereonet_tpu_torch.runtime.engine import StereoEngine
+
+    t = time.monotonic()
+    dev, cfg, trained, card = ctx["dev"], ctx["cfg"], ctx["trained"], ctx["card"]
+    out = ROOT / "build" / "artifact"
+    for name, (path, line) in ctx["exports"].items():
+        if line["bytes"] != path.stat().st_size or line["buckets"] != list(ARTIFACT_BUCKETS):
+            raise AssertionError(f"export {name}: {line}")
+        phase(f"artifact: export {name}: {line['bytes']} bytes in {line['seconds']:.3f} s "
+              f"(its process, beside the build and the other export); {json.dumps(line)}")
+    inputs = np.load(out / "inputs.npz")
+    sbs, left, right = inputs["sbs"], inputs["left"], inputs["right"]
+
+    for name, (path, _) in ctx["exports"].items():
+        rep = ctx["loader_reports"][name]
+        got = np.load(out / f"{name.replace(' ', '_')}_outputs.npz")
+        expect = dict(ARTIFACT_LAUNCHES)
+        quant = {} if name == "bf16" else {"static_quant": str(reference.CALIB_JSON)}
+        if quant:
+            expect["int8_conv"] = ARTIFACT_INT8_CONVS
+        for entry, info in rep["entries"].items():
+            want = dict(expect) if entry.startswith("nv12") else {
+                k: v for k, v in expect.items() if k != "nv12_ingest"}
+            by_ops = {OP_KERNELS[op]: n for op, n in info["ops"].items()}
+            if info["launches"] != want or by_ops != want:
+                raise AssertionError(f"artifact {name} {entry}: launches {info['launches']}, "
+                                     f"hst operators in its graph {info['ops']}; expected {want}")
+        eng = StereoEngine(cfg, params=trained, **quant)
+        for b in ARTIFACT_BUCKETS:
+            with torch.inference_mode():
+                d, z = (o.cpu().numpy() for o in eng.pipeline(
+                    torch.from_numpy(sbs[:b]).to(dev))[:2])
+                x = pp.rgb_batch_to_model_input(torch.from_numpy(left[:b]).to(dev),
+                                                torch.from_numpy(right[:b]).to(dev),
+                                                cfg.preprocess)
+                d_rgb = eng.model(*pp.split_model_input(x))["disparity"].cpu().numpy()
+            for what, a, want_a in ((f"nv12_b{b} disparity", got[f"nv12_b{b}_disparity"], d),
+                                    (f"nv12_b{b} depth", got[f"nv12_b{b}_depth"], z),
+                                    (f"rgb_b{b} disparity", got[f"rgb_b{b}_disparity"], d_rgb)):
+                if not np.array_equal(a, want_a):
+                    raise AssertionError(f"artifact {name} {what} differs from the engine: max "
+                                         f"|diff| {np.abs(a - want_a).max()}")
+        del eng
+        loads = ", ".join(f"{k} {v['load_s']:.2f} s" for k, v in rep["entries"].items())
+        phase(f"artifact {name}: loaded without the networks' code (entries {loads}); every "
+              f"entry equals StereoEngine bit for bit; launches a call "
+              f"{rep['entries']['nv12_b1']['launches']} (rgb: no ingest), one a hst operator; "
+              f"ArtifactEngine served {rep['served']} frames there")
+    art = CompiledStereoArtifact(str(ctx["exports"]["bf16"][0]))
+    for b in ARTIFACT_BUCKETS:
+        a_eng = ArtifactEngine(art, max_batch=b, drop_on_full=False)
+        a_eng.warmup()
+        e = StereoEngine(dataclasses.replace(cfg, engine=dataclasses.replace(
+            cfg.engine, max_batch=b, drop_on_full=False)), params=trained)
+        e.warmup(buckets=[b])
+        runs = fps_in_turns({"ArtifactEngine": a_eng, "StereoEngine": e}, sbs,
+                            ARTIFACT_FPS_FRAMES[b], rounds=ARTIFACT_FPS_ROUNDS)
+        ratios = [x / y for x, y in zip(runs["ArtifactEngine"], runs["StereoEngine"])]
+        phase(f"artifact bf16: batch {b}, {ARTIFACT_FPS_ROUNDS} rounds of "
+              f"{ARTIFACT_FPS_FRAMES[b]} frames of {W}x{H} an engine, in turns (host "
+              f"frames): ArtifactEngine {runs['ArtifactEngine']}, StereoEngine "
+              f"{runs['StereoEngine']} frames/s; ratios {ratios}, median "
+              f"{statistics.median(ratios)}; {card}")
+        del a_eng, e
+    art.close()
+    stream, infer = (ctx["artifact_lines"][k] for k in ("stream --artifact", "infer --artifact"))
+    if stream["frames_out"] != 8 or stream["nan_dropped"] or infer["shape"] != [H, W]:
+        raise AssertionError(f"cli with --artifact: stream {stream}, infer {infer}")
+    phase(f"artifact: cli (beside phase 13's commands) stream --artifact "
+          f"{json.dumps(stream)[:300]}; infer --artifact {json.dumps(infer)} "
+          f"({time.monotonic() - t:.1f} s)")
+
+
+def artifact_clis(ctx: dict, eyes: Path) -> dict:
+    """Start the CLI's ``stream --artifact`` (8 synthetic frames) and ``infer
+    --artifact`` (the raw ``.nv12`` eyes in ``eyes``) on the bf16 artifact
+    (the exported bf16 artifact)."""
+    path, _ = ctx["exports"]["bf16"]
+    return {"stream --artifact": start_cli("stream", "--frames", "8", "--unpaced",
+                                           "--artifact", str(path)),
+            "infer --artifact": start_cli("infer", "--left", str(eyes / "left.nv12"),
+                                          "--right", str(eyes / "right.nv12"),
+                                          "--artifact", str(path))}
+
+
+def slam_clis() -> dict:
+    """Start the CLI's ``slam`` runs (each a process of its own): the
+    defaults (network disparity from the flagship's weights), ground-truth
+    disparity, loop closure with the confidence gate, and an EuRoC-layout
+    sequence this function writes (rendered scenes, an ideal rig)."""
+    import numpy as np
+
+    from hobot_stereonet_tpu_torch.data.euroc import write_sequence
+    from hobot_stereonet_tpu_torch.data.synthetic import LayeredScene
+
+    root = ROOT / "build" / "slam" / "euroc"
+    cam_h, cam_w, focal, baseline = 240, 320, 300.0, 0.12
+    scene = LayeredScene(np.random.default_rng(11), cam_h, cam_w, focal, baseline)
+    ts = np.linspace(0, 1, 10)
+    centers = np.stack([0.6 * ts, 0.12 * np.sin(2 * np.pi * ts), np.zeros_like(ts)], axis=-1)
+    frames = [scene.render(float(x), float(y)) for x, y, _ in centers]
+    write_sequence(str(root / "MH_01_easy"), [f[0] for f in frames], [f[1] for f in frames],
+                   centers, focal, baseline)
+    runs = {"slam": [], "slam --gt-disparity": ["--gt-disparity"],
+            "slam --loop-closure --confidence-gate 0.5": ["--loop-closure",
+                                                          "--confidence-gate", "0.5"],
+            "slam --odometry-root (EuRoC layout)": ["--odometry-root", str(root),
+                                                    "--sequence", "MH_01_easy"]}
+    return {name: start_cli("slam", *args) for name, args in runs.items()}
+
+
+def slam_phase(ctx: dict) -> None:
+    """Phase 15: the SLAM back end on the card.  The CLI's ``slam`` runs
+    (:func:`slam_clis`, beside phase 13's commands) exit 0, never lose track, print their ATE (on
+    ground-truth disparity under 0.05 m); ``StereoSLAM`` on the card and on
+    the CPU on the CPU tests' run (seed 11, 320x240, 12 frames, 256
+    keypoints, ground-truth disparity) agree frame by frame (camera centres,
+    BA costs, keyframes, loops); TF32 reads off inside the geometry even
+    where it is on outside."""
+    import numpy as np
+    import torch
+
+    from hobot_stereonet_tpu_torch.config import CameraConfig, SLAMConfig
+    from hobot_stereonet_tpu_torch.data.synthetic import LayeredScene
+    from hobot_stereonet_tpu_torch.slam import pose_graph, tracker
+
+    t = time.monotonic()
+    got = ctx["slam_lines"]
+    for name, line in got.items():
+        phase(f"slam: cli {name}: {json.dumps(line)}")
+        lost = line.get("lost", line["frames"] - line.get("tracked", 0))
+        if lost or "ate_m" not in line or not np.isfinite(line["ate_m"]):
+            raise AssertionError(f"cli {name}: {line}")
+    if got["slam --gt-disparity"]["ate_m"] >= SLAM_ATE_M:
+        raise AssertionError(f"slam --gt-disparity: ATE {got['slam --gt-disparity']['ate_m']} m")
+
+    cam = CameraConfig(width=320, height=240, focal_px=300.0, baseline_mm=120.0)
+    scene = LayeredScene(np.random.default_rng(11), cam.height, cam.width, cam.focal_px,
+                         cam.baseline_m)
+    ts = np.linspace(0, 1, 12)
+    gt = np.stack([0.6 * ts, 0.12 * np.sin(2 * np.pi * ts), np.zeros_like(ts)], axis=-1)
+    frames = [scene.render(float(x), float(y)) for x, y, _ in gt]
+    tf32_seen = []
+    real_solve = torch.linalg.solve
+
+    def solve(*a, **k):
+        if a[0].device.type == "cuda":
+            tf32_seen.append(tf32_flags())
+        return real_solve(*a, **k)
+
+    res = {}
+    saved = tf32_flags()
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    torch.linalg.solve = solve
+    try:
+        for device in (ctx["dev"], "cpu"):
+            slam = tracker.StereoSLAM(cam, SLAMConfig(keyframe_translation_m=0.08,
+                                                      ba_iterations=6),
+                                      num_keypoints=256, device=device)
+            t1 = time.monotonic()
+            outs = [slam.process(l, d) for l, _, d in frames]
+            cost = slam.refine_window(window=3)["cost"]
+            loops = pose_graph.close_loops(slam)
+            centres = np.stack(slam.state.trajectory)
+            res[str(device)] = dict(
+                seconds=time.monotonic() - t1, tracked=sum(o["tracked"] for o in outs),
+                ate_m=tracker.absolute_trajectory_error(centres, gt),
+                keyframes=len(slam.state.keyframes), ba_cost=(float(cost[0]), float(cost[-1])),
+                loops=0 if loops is None else len(loops["loops"]), centres=centres,
+                cost=np.asarray(cost, np.float64))
+    finally:
+        torch.linalg.solve = real_solve
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    card_run, cpu_run = res[str(ctx["dev"])], res["cpu"]
+    brief = {k: {n: v for n, v in r.items() if n not in ("centres", "cost")}
+             for k, r in res.items()}
+    phase(f"slam: StereoSLAM, 12 frames of 320x240 on ground-truth disparity, windowed BA and "
+          f"loop closure: card {brief[str(ctx['dev'])]}, CPU {brief['cpu']}; {ctx['card']}")
+    for r in (card_run, cpu_run):
+        if r["tracked"] != 12 or r["ate_m"] >= SLAM_ATE_M or r["ba_cost"][1] > 1.01 * r["ba_cost"][0]:
+            raise AssertionError(f"StereoSLAM: {brief}")
+    if (card_run["centres"].shape != cpu_run["centres"].shape
+            or card_run["cost"].shape != cpu_run["cost"].shape
+            or (card_run["keyframes"], card_run["loops"]) != (cpu_run["keyframes"], cpu_run["loops"])):
+        raise AssertionError(f"StereoSLAM on the card against the CPU: {brief}")
+    centre_gap = float(np.linalg.norm(card_run["centres"] - cpu_run["centres"], axis=1).max())
+    cost_gap = float(np.max(np.abs(card_run["cost"] - cpu_run["cost"])
+                            / np.maximum(np.abs(cpu_run["cost"]), 1e-30)))
+    phase(f"slam: the card against the CPU: largest camera-centre distance {centre_gap:.3e} m "
+          f"(limit {SLAM_CENTRE_TO_CPU_M}) over {len(cpu_run['centres'])} frames; largest "
+          f"relative BA cost difference {cost_gap:.3e} (limit {SLAM_COST_TO_CPU}) over "
+          f"{len(cpu_run['cost'])} costs; ATE {card_run['ate_m']!r} against {cpu_run['ate_m']!r} m")
+    if centre_gap > SLAM_CENTRE_TO_CPU_M or cost_gap > SLAM_COST_TO_CPU:
+        raise AssertionError(f"StereoSLAM on the card against the CPU: centres {centre_gap} m, "
+                             f"BA costs {cost_gap} relative")
+    if not tf32_seen or any(f != (False, False) for f in tf32_seen):
+        raise AssertionError(f"TF32 inside the geometry's solves on the card: {set(tf32_seen)}")
+    phase(f"slam: TF32 read (cuDNN, matmul) = (False, False) at each of the {len(tf32_seen)} "
+          f"solves on the card, with TF32 on outside ({time.monotonic() - t:.1f} s)")
 
 
 def main() -> int:
@@ -2132,6 +2525,7 @@ def main() -> int:
     dev = torch.device("cuda:0")
 
     # 2. build ------------------------------------------------------------------
+    exporting = artifact_exports()
     t = time.monotonic()
     build.library()
     phase(f"build: kernels ready in {time.monotonic() - t:.2f} s")
@@ -2159,6 +2553,12 @@ def main() -> int:
                              f"scan's combines) in group_norm_scan_kernel ({gn_shfl}) and "
                              f"UBLKCP (bulk copies) in group_norm_walk_kernel ({gn_bulk})")
 
+    # Phase 14's exports (started beside the build) end before anything is timed.
+    t = time.monotonic()
+    exports = {name: (path, finish_cli(f"export {name}", proc, timeout=600.0))
+               for name, (path, proc) in exporting.items()}
+    phase(f"artifact: both exports done, {time.monotonic() - t:.1f} s after the build")
+
     # 3. kernels vs plain, at each batch -----------------------------------------
     rng = np.random.default_rng(0)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)   # > 50 MB L2
@@ -2180,9 +2580,10 @@ def main() -> int:
                       for net in ("fast", "classic")}
     phase(f"groupnorm: the GroupNorm inputs at {W}x{H}, batch 1 (samples, channels, spatial): "
           f"GroupNorms a forward {census}; in all {gn_per_forward}")
-    gn_rows = group_norm_phase(dev, census, flush, card)
+    gn_rows = group_norm_phase(dev, census, flush, card, torch.bfloat16)
     rows += gn_rows
-    phase(f"groupnorm: {len(gn_rows)} shapes and batches exact ({time.monotonic() - t:.1f} s)")
+    phase(f"groupnorm: {len(gn_rows)} bf16 shapes, batches and forms exact and timed (float32 "
+          f"in phase 13) ({time.monotonic() - t:.1f} s)")
     del flush
     # 4. reference: float32 network on the card vs the CPU ----------------------
     params = random_flax_params(cfg.model, seed=0)
@@ -2483,7 +2884,15 @@ def main() -> int:
     path_launches.update(train_launches)
 
     # 13. the command line ---------------------------------------------------------
-    cli_phase(dict(dev=dev, cfg=cfg, trained=trained, heldout=heldout))
+    ctx = dict(dev=dev, cfg=cfg, trained=trained, heldout=heldout, card=card, exports=exports,
+               census=census)
+    cli_phase(ctx)
+
+    # 14. the compiled artifact ---------------------------------------------------------
+    artifact_phase(ctx)
+
+    # 15. SLAM ------------------------------------------------------------------------------
+    slam_phase(ctx)
 
     def row_launches(r):
         if "key" in r:                            # a GroupNorm shape and form: its launches

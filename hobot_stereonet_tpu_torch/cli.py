@@ -12,6 +12,9 @@ arguments, defaults and one-line JSON output::
     python -m hobot_stereonet_tpu_torch.cli dump   --left L.png --right R.png --out dump.npz
     python -m hobot_stereonet_tpu_torch.cli compare A B
     python -m hobot_stereonet_tpu_torch.cli train  --steps N [--checkpoint DIR]
+    python -m hobot_stereonet_tpu_torch.cli export --out model.stereoblob [--buckets 1,8]
+    python -m hobot_stereonet_tpu_torch.cli infer|stream ... --artifact model.stereoblob
+    python -m hobot_stereonet_tpu_torch.cli slam   [--gt-disparity] [--loop-closure]
 
 Every command runs on ``cuda:0`` unless ``--device`` names another
 (``--device cpu`` runs the kernels' plain versions).  Images are read and
@@ -40,6 +43,7 @@ import dataclasses
 import json
 import os
 import sys
+import time
 from pathlib import Path
 from typing import Optional
 
@@ -192,8 +196,20 @@ def cmd_infer(args) -> int:
     right = _read_any_image(args.right, args.nv12_height, args.nv12_width)
     h, w = left.shape[:2]
     lp, rp = pad_to_multiple(left, 16), pad_to_multiple(right, 16)
-    eng, _ = _build_engine(args, h=lp.shape[0], w=lp.shape[1])
-    disp = eng.infer(lp, rp)[:h, :w]
+    if args.artifact:
+        # The deployment path: the compiled .stereoblob, no model code; the
+        # geometry must be the artifact's.
+        from .runtime.artifact import CompiledStereoArtifact
+
+        with CompiledStereoArtifact(args.artifact, device=args.device) as art:
+            if (lp.shape[0], lp.shape[1]) != (art.height, art.width):
+                raise SystemExit(
+                    f"input {lp.shape[1]}x{lp.shape[0]} != artifact geometry "
+                    f"{art.width}x{art.height} (artifacts are fixed-function, like .hbm blobs)")
+            disp = art.infer(lp, rp)[:h, :w]
+    else:
+        eng, _ = _build_engine(args, h=lp.shape[0], w=lp.shape[1])
+        disp = eng.infer(lp, rp)[:h, :w]
     print(json.dumps({"shape": list(disp.shape), "disparity_px": _disparity_stats(disp)}))
     if args.out:
         cm.save_png(args.out, cm.render_result(left, disp))
@@ -205,8 +221,18 @@ def cmd_stream(args) -> int:
     from .data.stream import SyntheticStreamSource, ThreadedCaptureSource
     from .utils.profiling import device_trace
 
-    eng, _ = _build_engine(args, keep_left=args.serve is not None)
-    h, w = eng.cfg.camera.height, eng.cfg.camera.width
+    if args.artifact:
+        # Deployment serving: the feed/poll loop over a compiled .stereoblob.
+        if args.serve is not None:
+            raise SystemExit("--serve needs the live engine (left-view decode); run without "
+                             "--artifact")
+        from .runtime.artifact import ArtifactEngine
+
+        eng = ArtifactEngine(args.artifact, device=args.device)
+        h, w = eng.height, eng.width
+    else:
+        eng, _ = _build_engine(args, keep_left=args.serve is not None)
+        h, w = eng.cfg.camera.height, eng.cfg.camera.width
     if args.left_list or args.right_list:
         if not (args.left_list and args.right_list):
             raise SystemExit("--left-list and --right-list go together")
@@ -436,6 +462,103 @@ def cmd_dump(args) -> int:
     return 0
 
 
+def cmd_slam(args) -> int:
+    """Stereo VO: a synthetic trajectory by default, or an odometry sequence
+    (KITTI or EuRoC layout) with --odometry-root; network disparity (or GT
+    with --gt-disparity on the synthetic path) -> tracker -> windowed BA ->
+    ATE.  The tracker runs on the engine's device (--device)."""
+    import numpy as np
+
+    from .config import CameraConfig, SLAMConfig
+
+    if args.odometry_root:
+        from .slam.run import open_sequence, run_odometry_sequence
+
+        seq = open_sequence(args.odometry_root, args.sequence)
+        first = seq[0]
+        eng, _ = _build_engine(args, h=first.left.shape[0] // 16 * 16,
+                               w=first.left.shape[1] // 16 * 16)
+        out = run_odometry_sequence(seq, engine=eng, max_frames=args.frames,
+                                    loop_closure=args.loop_closure)
+        if "ate_m" in out:
+            out["ate_m"] = round(out["ate_m"], 4)
+        print(json.dumps(out))
+        return 0
+    from .data.synthetic import LayeredScene
+    from .slam.tracker import StereoSLAM, absolute_trajectory_error
+
+    cam = CameraConfig(width=args.width, height=args.height)
+    rng = np.random.default_rng(args.seed)
+    scene = LayeredScene(rng, cam.height, cam.width, cam.focal_px, cam.baseline_m)
+    conf_gate = args.confidence_gate or 0.0
+    eng = None
+    if not args.gt_disparity:
+        eng, _ = _build_engine(args, h=cam.height, w=cam.width)
+    elif conf_gate > 0:
+        raise SystemExit("--confidence-gate needs network disparity (drop --gt-disparity)")
+    slam = StereoSLAM(cam, SLAMConfig(keyframe_translation_m=0.08, min_confidence=conf_gate),
+                      device=eng.device if eng is not None else args.device)
+    ts = np.linspace(0, 1, args.frames)
+    gt_centers = np.stack([0.6 * ts, 0.12 * np.sin(2 * np.pi * ts), np.zeros_like(ts)],
+                          axis=-1)
+    tracked = 0
+    t0 = time.monotonic()
+    for tx, ty, _ in gt_centers:
+        l, r, d = scene.render(float(tx), float(ty))
+        conf = None
+        if eng is not None:
+            if conf_gate > 0:
+                d, conf = eng.infer_with_confidence(l, r)
+            else:
+                d = eng.infer(l, r)
+        tracked += int(slam.process(l, d, confidence=conf)["tracked"])
+    slam.refine_window(window=4)
+    loops = 0
+    if args.loop_closure:
+        from .slam.pose_graph import close_loops
+
+        res = close_loops(slam)
+        loops = len(res["loops"]) if res is not None else 0
+    seconds = time.monotonic() - t0
+    ate = absolute_trajectory_error(np.stack(slam.state.trajectory), gt_centers)
+    print(json.dumps({
+        "ate_m": round(ate, 4),
+        "frames": args.frames,
+        "tracked": tracked,
+        "keyframes": len(slam.state.keyframes),
+        "disparity_source": "gt" if args.gt_disparity else "network",
+        **({"confidence_gate": conf_gate} if conf_gate > 0 else {}),
+        **({"loops_closed": loops} if args.loop_closure else {}),
+        "frames_per_s": round(args.frames / seconds, 3),
+    }))
+    return 0
+
+
+def cmd_export(args) -> int:
+    """Trace and serialize the serving pipeline to a .stereoblob (the
+    reference's offline .hbm build step): weights baked in, one entry per
+    platform and batch bucket."""
+    from .runtime.artifact import export_artifact
+
+    cfg, checkpoint = _resolve_checkpoint(args, _make_config(args))
+    t0 = time.monotonic()
+    manifest = export_artifact(
+        args.out, args.model, _load_params(checkpoint), cfg,
+        buckets=tuple(int(b) for b in args.buckets.split(",")),
+        platforms=tuple(args.platforms.split(",")), int8=args.int8,
+        static_quant=args.int8_calib)
+    print(json.dumps({
+        "out": args.out,
+        "bytes": os.path.getsize(args.out),
+        "buckets": manifest["buckets"],
+        "platforms": manifest["platforms"],
+        "geometry": f"{manifest['width']}x{manifest['height']}",
+        "quant": manifest["quant"],
+        "seconds": round(time.monotonic() - t0, 3),
+    }))
+    return 0
+
+
 def cmd_compare(args) -> int:
     """Diff two golden dumps."""
     from .runtime.golden import compare, load_dump
@@ -489,6 +612,9 @@ def main(argv=None) -> int:
     pi.add_argument("--bin-width", type=int, default=1280)
     pi.add_argument("--out", default=None, help="composite PNG path")
     pi.add_argument("--checkpoint", default=None, help=CHECKPOINT_HELP)
+    pi.add_argument("--artifact", default=None, metavar="BLOB",
+                    help="run a compiled .stereoblob (export) instead of the live model; "
+                         "the input geometry must match the artifact's")
     common(pi)
     pi.set_defaults(fn=cmd_infer)
 
@@ -507,6 +633,8 @@ def main(argv=None) -> int:
                     help="write a torch.profiler trace (Chrome JSON) into LOGDIR")
     ps.add_argument("--serve", type=int, default=None, metavar="PORT",
                     help="serve a live MJPEG browser view (left|disparity composite)")
+    ps.add_argument("--artifact", default=None, metavar="BLOB",
+                    help="serve a compiled .stereoblob through ArtifactEngine (no model code)")
     common(ps)
     ps.set_defaults(fn=cmd_stream)
 
@@ -559,6 +687,36 @@ def main(argv=None) -> int:
                     help="checkpoint to continue training from (weights only; a fresh optimizer)")
     common(pt)
     pt.set_defaults(fn=cmd_train)
+
+    pv = sub.add_parser("slam", help="stereo VO on a synthetic trajectory or an odometry "
+                                     "sequence")
+    pv.add_argument("--frames", type=int, default=12)
+    pv.add_argument("--width", type=int, default=320)
+    pv.add_argument("--height", type=int, default=240)
+    pv.add_argument("--seed", type=int, default=11)
+    pv.add_argument("--gt-disparity", action="store_true",
+                    help="track on ground-truth disparity (isolates the tracker)")
+    pv.add_argument("--odometry-root", default=None,
+                    help="an odometry dataset root (KITTI sequences/ or EuRoC mav0/)")
+    pv.add_argument("--sequence", default="00")
+    pv.add_argument("--checkpoint", default=None, help=CHECKPOINT_HELP)
+    pv.add_argument("--loop-closure", action="store_true",
+                    help="detect loops and optimize the keyframe pose graph")
+    pv.add_argument("--confidence-gate", type=float, default=0.0,
+                    help="map only keypoints whose network confidence (soft-argmin peak "
+                         "probability) is at least this; needs network disparity")
+    common(pv)
+    pv.set_defaults(fn=cmd_slam)
+
+    px = sub.add_parser("export", help="trace and serialize the serving pipeline to a "
+                                       ".stereoblob artifact")
+    px.add_argument("--out", required=True)
+    px.add_argument("--checkpoint", default=None, help=CHECKPOINT_HELP)
+    px.add_argument("--buckets", default="1,8", help="comma-separated batch buckets")
+    px.add_argument("--platforms", default="cuda",
+                    help="comma-separated platforms traced into the artifact (cpu, cuda)")
+    common(px)
+    px.set_defaults(fn=cmd_export)
 
     pd = sub.add_parser("dump", help="golden-tensor dump of one pair")
     pd.add_argument("--left", required=True)

@@ -5,8 +5,8 @@ The same frozen dataclasses load the same JSON files
 
   * ``StereoNetConfig.compute_dtype`` is a ``torch.dtype``; JSON keeps its
     name (``"bfloat16"``);
-  * ``mesh`` and ``slam`` are carried as plain dicts: the port does not
-    serve on a mesh or run SLAM yet;
+  * ``mesh`` is carried as a plain dict: the port does not serve on a
+    mesh yet;
   * ``CameraConfig.depth_from_disparity`` takes tensors.
 """
 
@@ -28,6 +28,10 @@ class CameraConfig:
     baseline_mm: float = 119.89382172
     width: int = 1280
     height: int = 720
+
+    @property
+    def baseline_m(self) -> float:
+        return self.baseline_mm / 1000.0
 
     def depth_from_disparity(self, disparity_px: torch.Tensor) -> torch.Tensor:
         """Metric depth (m) from disparity (px): ``Z = f*B / max(d, 1e-6) / 1000``
@@ -112,14 +116,31 @@ class EngineConfig:
 
 
 @dataclass(frozen=True)
+class SLAMConfig:
+    """The SLAM back end's settings (``hobot_stereonet_tpu/config.py``'s)."""
+
+    max_keyframes: int = 256
+    max_points_per_keyframe: int = 512
+    keyframe_translation_m: float = 0.3
+    keyframe_rotation_deg: float = 10.0
+    ba_iterations: int = 10
+    ba_damping: float = 1e-4
+    huber_delta_px: float = 3.0
+    # Minimum soft-argmin peak probability (the network's confidence,
+    # StereoResult.confidence) for a keypoint's disparity to be
+    # triangulated into the map; 0 disables the gate.
+    min_confidence: float = 0.0
+
+
+@dataclass(frozen=True)
 class Config:
     camera: CameraConfig = field(default_factory=CameraConfig)
     model: StereoNetConfig = field(default_factory=StereoNetConfig)
     preprocess: PreprocessConfig = field(default_factory=PreprocessConfig)
     engine: EngineConfig = field(default_factory=EngineConfig)
-    # Carried through unchanged; the port has no mesh serving or SLAM yet.
+    # Carried through unchanged; the port has no mesh serving yet.
     mesh: Mapping[str, Any] = field(default_factory=lambda: {"data": 1, "tile": 1})
-    slam: Mapping[str, Any] = field(default_factory=dict)
+    slam: SLAMConfig = field(default_factory=SLAMConfig)
 
     def to_dict(self) -> dict:
         def enc(obj):
@@ -141,6 +162,7 @@ class Config:
             "model": StereoNetConfig,
             "preprocess": PreprocessConfig,
             "engine": EngineConfig,
+            "slam": SLAMConfig,
         }
         kwargs = {}
         for name, klass in sub_types.items():
@@ -153,9 +175,8 @@ class Config:
                     if isinstance(v, list):
                         sub[k] = tuple(v)
                 kwargs[name] = klass(**sub)
-        for name in ("mesh", "slam"):
-            if name in d:
-                kwargs[name] = dict(d[name])
+        if "mesh" in d:
+            kwargs["mesh"] = dict(d["mesh"])
         return cls(**kwargs)
 
     @classmethod

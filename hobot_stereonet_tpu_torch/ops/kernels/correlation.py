@@ -15,8 +15,11 @@ The three public functions are differentiable: each is a
 (``*_backward_plain``) on CPU tensors.  The backward follows the
 vector-Jacobian product that ``jax.vjp`` takes of the JAX package's XLA
 functions (``build_correlation_volume``, ``soft_argmin``,
-``disparity_confidence``), rounding where it rounds.  Under
-``torch.no_grad`` or ``torch.inference_mode`` the forward is what it was:
+``disparity_confidence``), rounding where it rounds.  The forwards are the
+custom operators ``hst::correlation_volume``, ``hst::soft_argmin_confidence``
+and ``hst::soft_argmin_cost``; the Function wraps them only where autograd
+records the call, so that under ``torch.no_grad`` or
+``torch.inference_mode`` (and in an exported program) the op runs alone:
 the same kernel launches, the same bits.
 """
 
@@ -133,14 +136,22 @@ def correlation_volume(feat_l: torch.Tensor, feat_r: torch.Tensor,
     cores (C a multiple of 16 up to 256, 16-byte aligned maps), f32 in
     full f32.  CPU tensors go through :func:`correlation_volume_plain`.
     """
-    return _CorrelationVolume.apply(feat_l, feat_r, num_disparities)
+    if needs_grad(feat_l, feat_r):
+        return _CorrelationVolume.apply(feat_l, feat_r, num_disparities)
+    return torch.ops.hst.correlation_volume(feat_l, feat_r, num_disparities)
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd records a call on ``tensors``: the ``autograd.Function``
+    around an op runs only then, so that an exported graph holds the op itself."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
 
 
 class _CorrelationVolume(torch.autograd.Function):
     @staticmethod
     def forward(ctx, feat_l, feat_r, num_disparities):
         ctx.save_for_backward(feat_l, feat_r)
-        return _correlation_forward(feat_l, feat_r, num_disparities)
+        return torch.ops.hst.correlation_volume(feat_l, feat_r, num_disparities)
 
     @staticmethod
     def backward(ctx, dcorr):
@@ -149,13 +160,24 @@ class _CorrelationVolume(torch.autograd.Function):
         return dfl, dfr, None
 
 
-def _correlation_forward(feat_l: torch.Tensor, feat_r: torch.Tensor,
-                         num_disparities: int) -> torch.Tensor:
-    if feat_l.device.type == "cpu":
-        return correlation_volume_plain(feat_l, feat_r, num_disparities)
+@torch.library.custom_op("hst::correlation_volume", mutates_args=(), device_types="cpu")
+def _correlation_op(feat_l: torch.Tensor, feat_r: torch.Tensor,
+                    num_disparities: int) -> torch.Tensor:
+    """``hst::correlation_volume``: the plain version on the CPU, the kernel
+    on CUDA (:func:`_correlation_cuda`); no other device."""
+    return correlation_volume_plain(feat_l, feat_r, num_disparities)
+
+
+@_correlation_op.register_fake
+def _(feat_l, feat_r, num_disparities):
     _check_features(feat_l, feat_r)
-    if feat_l.device.type != "cuda":
-        raise ValueError(f"{CORRELATION}: unsupported device {feat_l.device}")
+    return feat_l.new_empty(feat_l.shape[:3] + (num_disparities,))
+
+
+@_correlation_op.register_kernel("cuda")
+def _correlation_cuda(feat_l: torch.Tensor, feat_r: torch.Tensor,
+                      num_disparities: int) -> torch.Tensor:
+    _check_features(feat_l, feat_r)
     if not (feat_l.is_contiguous() and feat_r.is_contiguous()):
         raise ValueError(f"{CORRELATION}: features must be contiguous [B,H,W,C]")
     if num_disparities <= 0:
@@ -361,11 +383,11 @@ class _SoftArgmin(torch.autograd.Function):
     ``backward_fn(x, gd, gc, scale)`` (a cotangent not given is None)."""
 
     @staticmethod
-    def forward(ctx, x, scale, forward_fn, backward_fn):
+    def forward(ctx, x, scale, forward_op, backward_fn):
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(x)
         ctx.scale, ctx.backward_fn = scale, backward_fn
-        return forward_fn(x, scale)
+        return forward_op(x, scale)
 
     @staticmethod
     def backward(ctx, gd, gc):
@@ -383,16 +405,33 @@ def soft_argmin_confidence(logits: torch.Tensor, scale: float = 1.0):
     where :func:`uses_vector_kernel`, else its generic kernel); CPU tensors
     through :func:`soft_argmin_confidence_plain`.
     """
-    return _SoftArgmin.apply(logits, scale, _soft_argmin_forward,
-                             soft_argmin_confidence_backward)
+    op = torch.ops.hst.soft_argmin_confidence
+    if needs_grad(logits):
+        return _SoftArgmin.apply(logits, float(scale), op, soft_argmin_confidence_backward)
+    return op(logits, float(scale))
 
 
-def _soft_argmin_forward(logits: torch.Tensor, scale: float):
-    if logits.device.type == "cpu":
-        return soft_argmin_confidence_plain(logits, scale)
+def _fake_disp_conf(x: torch.Tensor, spatial):
+    disp = x.new_empty(spatial, dtype=torch.promote_types(x.dtype, torch.float32))
+    return disp, torch.empty_like(disp)
+
+
+@torch.library.custom_op("hst::soft_argmin_confidence", mutates_args=(), device_types="cpu")
+def _soft_argmin_op(logits: torch.Tensor, scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """``hst::soft_argmin_confidence``: the plain version on the CPU, the
+    kernel on CUDA (:func:`_soft_argmin_cuda`)."""
+    return soft_argmin_confidence_plain(logits, scale)
+
+
+@_soft_argmin_op.register_fake
+def _(logits, scale):
+    _check_logits(logits, _PLAIN_DTYPES)
+    return _fake_disp_conf(logits, logits.shape[:3])
+
+
+@_soft_argmin_op.register_kernel("cuda")
+def _soft_argmin_cuda(logits: torch.Tensor, scale: float):
     _check_logits(logits)
-    if logits.device.type != "cuda":
-        raise ValueError(f"{SOFT_ARGMIN}: unsupported device {logits.device}")
     if not logits.is_contiguous():
         raise ValueError(f"{SOFT_ARGMIN}: logits must be contiguous [B,H,W,D]")
     b, h, w, d = logits.shape
@@ -456,15 +495,28 @@ def soft_argmin_cost(cost: torch.Tensor, scale: float = 1.0):
     which reads the cost where it lies (it must be contiguous); CPU
     tensors through :func:`soft_argmin_cost_plain`.
     """
-    return _SoftArgmin.apply(cost, scale, _soft_argmin_cost_forward, soft_argmin_cost_backward)
+    op = torch.ops.hst.soft_argmin_cost
+    if needs_grad(cost):
+        return _SoftArgmin.apply(cost, float(scale), op, soft_argmin_cost_backward)
+    return op(cost, float(scale))
 
 
-def _soft_argmin_cost_forward(cost: torch.Tensor, scale: float):
-    if cost.device.type == "cpu":
-        return soft_argmin_cost_plain(cost, scale)
+@torch.library.custom_op("hst::soft_argmin_cost", mutates_args=(), device_types="cpu")
+def _soft_argmin_cost_op(cost: torch.Tensor, scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """``hst::soft_argmin_cost``: the plain version on the CPU, the
+    D-leading kernel on CUDA (:func:`_soft_argmin_cost_cuda`)."""
+    return soft_argmin_cost_plain(cost, scale)
+
+
+@_soft_argmin_cost_op.register_fake
+def _(cost, scale):
+    _check_cost(cost, _PLAIN_DTYPES)
+    return _fake_disp_conf(cost, cost.shape[:1] + cost.shape[2:])
+
+
+@_soft_argmin_cost_op.register_kernel("cuda")
+def _soft_argmin_cost_cuda(cost: torch.Tensor, scale: float):
     _check_cost(cost)
-    if cost.device.type != "cuda":
-        raise ValueError(f"{SOFT_ARGMIN_COST}: unsupported device {cost.device}")
     if not cost.is_contiguous():
         raise ValueError(f"{SOFT_ARGMIN_COST}: the cost must be contiguous [B,D,H,W]")
     b, d, h, w = cost.shape

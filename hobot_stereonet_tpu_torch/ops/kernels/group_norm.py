@@ -383,11 +383,13 @@ def statistics_plain(x: torch.Tensor, num_groups: int, eps: float):
     n, c = x.shape[:2]
     d = c // num_groups
     a = x.detach().movedim(1, -1).reshape(n, -1, c).float().cpu().numpy()   # [N, P, C]
-    # np.cumsum's last row is a strict sequential float32 sum (np.sum is
-    # pairwise, and torch.cumsum accumulates in float64 on the CPU).
-    s1 = np.cumsum(a, axis=1, dtype=np.float32)[:, -1]
+    # np.cumsum's last element is a strict sequential float32 sum (np.sum is
+    # pairwise, and torch.cumsum accumulates in float64 on the CPU); it runs
+    # along contiguous rows, [N, C, P], several times faster than along P.
+    rows = np.ascontiguousarray(a.transpose(0, 2, 1))
+    s1 = np.cumsum(rows, axis=2, dtype=np.float32)[..., -1]
     if x.dtype == torch.bfloat16:                # x * x exact: fma(x, x, s) = s + x * x
-        s2 = np.cumsum(a * a, axis=1, dtype=np.float32)[:, -1]
+        s2 = np.cumsum(rows * rows, axis=2, dtype=np.float32)[..., -1]
     else:
         s2 = _fma_square_sums(a)
     g1 = np.cumsum(s1.reshape(n, num_groups, d), axis=2, dtype=np.float32)[..., -1]
@@ -550,14 +552,8 @@ class _GroupNormFused(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, weight, bias, conv_bias, skip, num_groups, eps, activate, keep):
-        if x.device.type == "cpu":
-            out, r, mean, rstd = group_norm_fused_plain(x, num_groups, weight, bias, eps,
-                                                        conv_bias, skip, activate)
-        elif x.device.type == "cuda":
-            out, mean, rstd, r = _launch(x, num_groups, weight, bias, eps, conv_bias, skip,
-                                         activate, keep_r=keep and activate)
-        else:
-            raise ValueError(f"{NAME}: unsupported device {x.device}")
+        out, mean, rstd, r = torch.ops.hst.group_norm_fused(
+            x, weight, bias, conv_bias, skip, num_groups, eps, activate, keep and activate)
         ctx.save_for_backward(x, weight, conv_bias, mean, rstd, r if keep and activate else None)
         ctx.num_groups, ctx.activate = num_groups, activate
         ctx.has_skip = skip is not None
@@ -603,10 +599,46 @@ def group_norm_fused(x: torch.Tensor, num_groups: int, weight: torch.Tensor,
     ``x``: the conv's output without its bias (bf16 or float32, channels-last
     on the card); ``conv_bias``: float32 or bf16 [C], rounded to x's dtype
     before the add; ``skip``: like x."""
-    keep = torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in (x, weight, bias, conv_bias, skip))
-    return _GroupNormFused.apply(x, weight, bias, conv_bias, skip, num_groups, eps, activate,
-                                 keep)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{NAME}: unsupported device {x.device}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, weight, bias, conv_bias, skip)):
+        return _GroupNormFused.apply(x, weight, bias, conv_bias, skip, num_groups, eps,
+                                     activate, True)
+    return torch.ops.hst.group_norm_fused(x, weight, bias, conv_bias, skip, num_groups, eps,
+                                          activate, False)[0]
+
+
+@torch.library.custom_op("hst::group_norm_fused", mutates_args=(), device_types="cpu")
+def _group_norm_op(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                   conv_bias: Optional[torch.Tensor], skip: Optional[torch.Tensor],
+                   num_groups: int, eps: float, activate: bool, keep_r: bool
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``hst::group_norm_fused`` -> (out, mean, rstd, r): the plain version on
+    the CPU (:func:`group_norm_fused_plain`), one kernel launch on CUDA
+    (:func:`_group_norm_cuda_op`).  r (the value before the activation) only
+    with ``keep_r`` (and ``activate``), else an empty tensor."""
+    out, r, mean, rstd = group_norm_fused_plain(x, num_groups, weight, bias, eps, conv_bias,
+                                                skip, activate)
+    return out, mean, rstd, (r if keep_r else x.new_empty(0))
+
+
+@_group_norm_op.register_fake
+def _(x, weight, bias, conv_bias, skip, num_groups, eps, activate, keep_r):
+    _check(x, num_groups, weight, bias)
+    fmt = _memory_format(x) if x.is_contiguous(memory_format=_memory_format(x)) \
+        else torch.preserve_format
+    out = torch.empty_like(x, memory_format=fmt)
+    mean = x.new_empty((x.shape[0], num_groups), dtype=torch.float32)
+    r = torch.empty_like(out) if keep_r else x.new_empty(0)
+    return out, mean, torch.empty_like(mean), r
+
+
+@_group_norm_op.register_kernel("cuda")
+def _group_norm_cuda_op(x, weight, bias, conv_bias, skip, num_groups, eps, activate, keep_r):
+    out, mean, rstd, r = _launch(x, num_groups, weight, bias, eps, conv_bias, skip, activate,
+                                 keep_r=keep_r)
+    return out, mean, rstd, (r if keep_r else x.new_empty(0))
 
 
 def group_norm(x: torch.Tensor, num_groups: int, weight: torch.Tensor, bias: torch.Tensor,

@@ -332,11 +332,31 @@ def int8_epilogue(acc: torch.Tensor, rows: int, cout: int, rows_per_sample: int,
     if rows % rows_per_sample or sx.numel() not in (1, rows // rows_per_sample):
         raise ValueError(f"{EPILOGUE_NAME}: {rows} rows, {rows_per_sample} a sample and "
                          f"{sx.numel()} scales do not agree")
-    if acc.device.type == "cpu":
-        a = acc[:rows, :cout].float().view(-1, rows_per_sample, cout)
-        return epilogue(a, sx, s_k, bias, 2, out_dtype).view(rows, cout)
-    if acc.device.type != "cuda":
+    if acc.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{EPILOGUE_NAME}: unsupported device {acc.device}")
+    return torch.ops.hst.int8_epilogue(acc, rows, cout, rows_per_sample, sx, s_k, bias,
+                                       out_dtype)
+
+
+@torch.library.custom_op("hst::int8_epilogue", mutates_args=(), device_types="cpu")
+def _epilogue_op(acc: torch.Tensor, rows: int, cout: int, rows_per_sample: int,
+                 sx: torch.Tensor, s_k: torch.Tensor, bias: torch.Tensor,
+                 out_dtype: torch.dtype) -> torch.Tensor:
+    """``hst::int8_epilogue``: :func:`epilogue` on the CPU, the kernel of
+    ``csrc/int8_epilogue.cu`` on CUDA (:func:`_epilogue_cuda`)."""
+    a = acc[:rows, :cout].float().view(-1, rows_per_sample, cout)
+    return epilogue(a, sx, s_k, bias, 2, out_dtype).view(rows, cout)
+
+
+@_epilogue_op.register_fake
+def _(acc, rows, cout, rows_per_sample, sx, s_k, bias, out_dtype):
+    return acc.new_empty((rows, cout), dtype=out_dtype)
+
+
+@_epilogue_op.register_kernel("cuda")
+def _epilogue_cuda(acc: torch.Tensor, rows: int, cout: int, rows_per_sample: int,
+                   sx: torch.Tensor, s_k: torch.Tensor, bias: torch.Tensor,
+                   out_dtype: torch.dtype) -> torch.Tensor:
     if out_dtype not in _IN_DTYPES:
         raise TypeError(f"{EPILOGUE_NAME}: float32 or bfloat16 out only, got {out_dtype}")
     params = (sx, s_k, bias)
@@ -398,16 +418,44 @@ def padded_channels(cin: int, cout: int):
 
 def int8_conv(x: torch.Tensor, q_w: torch.Tensor, packed: torch.Tensor, s_k: torch.Tensor,
               bias: torch.Tensor, sx: torch.Tensor, qs: torch.Tensor, *,
-              stride: int, divide: bool, out_dtype: torch.dtype) -> torch.Tensor:
-    """The w8a8 conv: the kernel of ``csrc/int8_conv.cu`` for CUDA tensors,
-    :func:`int8_conv_plain` for CPU tensors.  ``packed`` is
-    :func:`pack_weight` of ``q_w``; ``x`` must be channels-last."""
-    if x.device.type == "cpu":
-        return int8_conv_plain(x, q_w, s_k, bias, sx, qs, stride=stride, divide=divide,
-                               out_dtype=out_dtype)
-    if x.device.type != "cuda":
+              stride: int, divide: bool, out_dtype: torch.dtype,
+              dilation: int = 1) -> torch.Tensor:
+    """The w8a8 conv: the kernel of ``csrc/int8_conv.cu`` for CUDA tensors
+    (undilated 2-D convs), :func:`int8_conv_plain` for CPU tensors.
+    ``packed`` is :func:`pack_weight` of ``q_w`` (the plain version does
+    not read it); ``x`` must be channels-last.  The custom op
+    ``hst::int8_conv``; devices other than these two raise."""
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{NAME}: unsupported device {x.device}")
+    return torch.ops.hst.int8_conv(x, q_w, packed, s_k, bias, sx, qs, stride, dilation, divide,
+                                   out_dtype)
+
+
+@torch.library.custom_op("hst::int8_conv", mutates_args=(), device_types="cpu")
+def _int8_conv_op(x: torch.Tensor, q_w: torch.Tensor, packed: torch.Tensor,
+                  s_k: torch.Tensor, bias: torch.Tensor, sx: torch.Tensor, qs: torch.Tensor,
+                  stride: int, dilation: int, divide: bool,
+                  out_dtype: torch.dtype) -> torch.Tensor:
+    return int8_conv_plain(x, q_w, s_k, bias, sx, qs, stride=stride, divide=divide,
+                           out_dtype=out_dtype, dilation=dilation)
+
+
+@_int8_conv_op.register_fake
+def _(x, q_w, packed, s_k, bias, sx, qs, stride, dilation, divide, out_dtype):
     _check(x, q_w, s_k, bias, sx, qs, out_dtype)
+    out = [-(-s // stride) for s in x.shape[2:]]
+    return x.new_empty((x.shape[0], q_w.shape[0], *out), dtype=out_dtype).contiguous(
+        memory_format=memory_format(x.dim()))
+
+
+@_int8_conv_op.register_kernel("cuda")
+def _int8_conv_cuda(x: torch.Tensor, q_w: torch.Tensor, packed: torch.Tensor,
+                    s_k: torch.Tensor, bias: torch.Tensor, sx: torch.Tensor, qs: torch.Tensor,
+                    stride: int, dilation: int, divide: bool,
+                    out_dtype: torch.dtype) -> torch.Tensor:
+    _check(x, q_w, s_k, bias, sx, qs, out_dtype)
+    if dilation != 1:
+        raise ValueError(f"{NAME}: undilated convs only on the card, got dilation {dilation}")
     if x.dim() != 4:
         raise ValueError(f"{NAME}: 2-D convs only on the card, got {tuple(q_w.shape)}")
     n, cin, h, w = x.shape

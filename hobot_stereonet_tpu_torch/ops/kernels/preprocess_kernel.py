@@ -89,13 +89,29 @@ def nv12_sbs_preprocess(sbs: torch.Tensor, height: int, width: int,
     (float32, with ``rgb``), quantized to the input's int8 grid with
     ``quantize``.
 
-    CUDA tensors go through the kernel in ``csrc/nv12_ingest.cu``; CPU
-    tensors through :func:`nv12_sbs_preprocess_plain`.
+    The custom op ``hst::nv12_sbs_preprocess``: CUDA tensors go through the
+    kernel in ``csrc/nv12_ingest.cu``, CPU tensors through
+    :func:`nv12_sbs_preprocess_plain`; other devices raise.
     """
-    if sbs.device.type == "cpu":
-        return nv12_sbs_preprocess_plain(sbs, height, width, rgb, quantize)
-    if sbs.device.type != "cuda":
-        raise ValueError(f"{NAME}: unsupported device {sbs.device}")
+    return torch.ops.hst.nv12_sbs_preprocess(_check(sbs, height, width), height, width,
+                                             rgb, quantize)
+
+
+@torch.library.custom_op("hst::nv12_sbs_preprocess", mutates_args=(), device_types="cpu")
+def _preprocess_op(sbs: torch.Tensor, height: int, width: int, rgb: bool,
+                   quantize: bool) -> torch.Tensor:
+    return nv12_sbs_preprocess_plain(sbs, height, width, rgb, quantize)
+
+
+@_preprocess_op.register_fake
+def _(sbs, height, width, rgb, quantize):
+    sbs = _check(sbs, height, width)
+    return sbs.new_empty((sbs.shape[0], height, width, 6), dtype=out_dtype(rgb))
+
+
+@_preprocess_op.register_kernel("cuda")
+def _preprocess_cuda(sbs: torch.Tensor, height: int, width: int, rgb: bool,
+                     quantize: bool) -> torch.Tensor:
     sbs = _check(sbs, height, width)
     if not sbs.is_contiguous():
         raise ValueError(f"{NAME}: frames must be contiguous")

@@ -132,10 +132,17 @@ def rgb_pair_to_model_input(
     without a card); tensors stay where they are.
     """
     left, right = _to_device((left_rgb, right_rgb), device, "rgb_pair_to_model_input")
+    return rgb_batch_to_model_input(left, right, cfg)[None]
+
+
+def rgb_batch_to_model_input(left: torch.Tensor, right: torch.Tensor,
+                             cfg: PreprocessConfig = PreprocessConfig()) -> torch.Tensor:
+    """[..., H, W, 3] uint8 RGB tensors -> [..., H, W, 6] float32: the
+    arithmetic of :func:`rgb_pair_to_model_input` on any leading shape."""
     if cfg.color_space == "yuv":
         left = torch.clamp(cs.rgb_to_yuv(left), 0.0, 255.0)
         right = torch.clamp(cs.rgb_to_yuv(right), 0.0, 255.0)
-    return normalize(torch.cat([left.float(), right.float()], dim=-1), cfg)[None]
+    return normalize(torch.cat([left.float(), right.float()], dim=-1), cfg)
 
 
 def split_model_input(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -162,9 +162,9 @@ class Int8Conv(nn.Module):
         else:
             sx = qs = activation_scale(x)
         if x.device.type == "cpu":
-            return k8.int8_conv_plain(x, self.q_weight, self.weight_scale, self.bias, sx, qs,
-                                      stride=self.stride, divide=not self.static,
-                                      out_dtype=self.out_dtype, dilation=self.dilation)
+            return k8.int8_conv(x, self.q_weight, self.packed_weight, self.weight_scale,
+                                self.bias, sx, qs, stride=self.stride, divide=not self.static,
+                                out_dtype=self.out_dtype, dilation=self.dilation)
         return self.on_card(x, sx, qs, divide=not self.static)
 
     def on_card(self, x: torch.Tensor, sx: torch.Tensor, qs: torch.Tensor, *,

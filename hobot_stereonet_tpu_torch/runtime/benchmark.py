@@ -116,3 +116,48 @@ def measure_engine_fps(
             file=verbose_to,
         )
     return out
+
+
+def fps_in_turns(engines: Mapping[str, object], frames, n_frames: int, rounds: int = 3,
+                 timeout: float = 300.0) -> dict:
+    """Frames/s of several serving engines on the same host frames, in turns.
+
+    ``engines`` maps names to started-never or stopped engines
+    (:class:`~.engine.StereoEngine`, :class:`~.artifact.ArtifactEngine`),
+    warmed up and built with ``drop_on_full=False``; ``frames`` is an
+    [N, L] uint8 array of side-by-side NV12 frames at their geometry.  Each
+    round runs every engine once over ``n_frames`` frames (cycling through
+    ``frames``), in the given order on even rounds and reversed on odd
+    ones, so that a slow spell of the shared host falls on each engine.  A
+    run starts the engine's workers, feeds as fast as the engine takes
+    frames (a feed waits while the queue is full), discards results as they
+    come and stops after the drain; its frames/s is ``n_frames`` over the
+    time from the start to the drain.  Returns ``{name: [frames/s of each
+    round]}``; raises if a run lost a frame.
+    """
+    from ..data.stream import Frame
+
+    names = list(engines)
+    out = {name: [] for name in names}
+    for r in range(rounds):
+        for name in (names if r % 2 == 0 else names[::-1]):
+            eng = engines[name]
+            h, w = eng._geom_h, eng._geom_w
+            got = 0
+            t0 = time.perf_counter()
+            eng.start(warmup=False)
+            try:
+                for i in range(n_frames):
+                    eng.feed(Frame(time.monotonic(), frames[i % len(frames)], h, 2 * w, index=i))
+                    while eng.poll(timeout=0) is not None:
+                        got += 1
+                eng.drain(timeout=timeout)
+                dt = time.perf_counter() - t0
+                while eng.poll(timeout=0) is not None:
+                    got += 1
+            finally:
+                eng.stop()
+            if got != n_frames:
+                raise AssertionError(f"{name}: {got} results of {n_frames} frames")
+            out[name].append(n_frames / dt)
+    return out

@@ -48,82 +48,38 @@ Not served here: mesh serving (``_check_supported``).
 
 from __future__ import annotations
 
-import queue
 import time
-from dataclasses import dataclass
 from typing import Mapping, Optional
 
 import numpy as np
 import torch
 
 from ..config import Config, resolve_device
-from ..data.stream import Frame, RingSlot, sbs_nv12_to_left_rgb
+from ..data.stream import Frame, RingSlot
 from ..models import build_model, model_name
 from ..ops import preprocess as pp
 from ..ops.disparity import disparity_to_depth_m
 from ..ops.quant import load_calibration, serving_model
-from .serving import ServingLoop
+from .serving import DeviceBatchView, ServingLoop, StereoResult, nonfinite_flags
 from .weights import from_flax_params, random_flax_params
 
 __all__ = ["DeviceBatchView", "Frame", "StereoEngine", "StereoResult", "nonfinite_flags"]
 
-# Longest a fetch waits for one batch to finish on the device.
-DEVICE_DEADLINE_S = 120.0
 
-
-class DeviceBatchView:
-    """One frame's row of a result batch that stays on the device.
-
-    ``device_array()`` is the row as a view (no launch).  It makes the
-    caller's current stream wait for the batch's event and records the
-    batch on that stream, so the caching allocator does not hand the
-    memory to a later batch while the caller's work still reads it.
-    ``np.asarray(view)`` copies the row to the host.
-    """
-
-    __slots__ = ("_batch", "_i", "_event")
-
-    def __init__(self, batch: torch.Tensor, i: int, event=None):
-        self._batch = batch
-        self._i = i
-        self._event = event
-
-    @property
-    def shape(self):
-        return tuple(self._batch.shape[1:])
-
-    @property
-    def dtype(self):
-        return self._batch.dtype
-
-    def device_array(self) -> torch.Tensor:
-        if self._batch.device.type == "cuda":
-            stream = torch.cuda.current_stream(self._batch.device)
-            if self._event is not None:
-                stream.wait_event(self._event)
-            self._batch.record_stream(stream)
-        return self._batch[self._i]
-
-    def __array__(self, dtype=None, copy=None):
-        out = self.device_array().cpu().numpy()
-        return out.astype(dtype) if dtype is not None else out
-
-
-@dataclass
-class StereoResult:
-    index: int
-    timestamp: float
-    disparity: "np.ndarray | DeviceBatchView"  # [H, W] float32 px
-    depth_m: "Optional[np.ndarray | DeviceBatchView]" = None   # [H, W] float32 m
-    gt_disparity: Optional[np.ndarray] = None
-    e2e_latency_s: float = 0.0
-    confidence: "Optional[np.ndarray | DeviceBatchView]" = None  # [H/8, W/8] in [0, 1]
-    left_rgb: Optional[np.ndarray] = None     # [H, W, 3] uint8, with keep_left
-
-
-def nonfinite_flags(disp: torch.Tensor) -> torch.Tensor:
-    """Per-frame flags, 1.0 where a frame's disparity holds NaN or Inf."""
-    return (~torch.isfinite(disp)).flatten(1).any(dim=1).float()
+def serving_network(model, params: Optional[Mapping], cfg: Config, device: torch.device,
+                    int8: bool = False, static_quant=None) -> torch.nn.Module:
+    """The network :class:`StereoEngine` serves: ``model`` (a name, built on
+    ``device``, or a built network) with ``params`` (None: seeded random
+    weights for a name, a built network's own), quantized as ``int8`` and
+    ``static_quant`` ask, in eval mode."""
+    built = not isinstance(model, str)
+    model = build_model(model, cfg.model, device)
+    name = model_name(model)
+    if params is None and not built:
+        params = random_flax_params(cfg.model, seed=0, model=name)
+    if params is not None:
+        model.load_state_dict(from_flax_params(params, model.cfg, name))
+    return serving_model(model, int8, static_quant)
 
 
 def _check_supported(cfg: Config) -> None:
@@ -172,22 +128,18 @@ class StereoEngine(ServingLoop):
             feed_queue_depth=cfg.engine.feed_queue_depth,
             inflight=cfg.engine.inflight,
             drop_on_full=cfg.engine.drop_on_full,
+            max_batch=cfg.engine.max_batch,
+            nan_guard=cfg.engine.nan_guard,
+            fetch_results=cfg.engine.fetch_results,
+            keep_left=keep_left,
         )
-        built = not isinstance(model, str)
-        model = build_model(model, cfg.model, self.device)
-        name = model_name(model)
-        if params is None and not built:
-            params = random_flax_params(cfg.model, seed=0, model=name)
-        if params is not None:
-            model.load_state_dict(from_flax_params(params, model.cfg, name))
         if isinstance(static_quant, str):
             static_quant = load_calibration(static_quant)
         self.int8 = int8
         self.static_quant = static_quant
-        self.model = serving_model(model, int8, static_quant)
+        self.model = serving_network(model, params, cfg, self.device, int8, static_quant)
         self._compute_depth = compute_depth
         self._emit_confidence = emit_confidence
-        self._keep_left = keep_left
         self._buckets = cfg.engine.batch_buckets
         self._stream = None
         if self.device.type == "cuda":
@@ -274,7 +226,7 @@ class StereoEngine(ServingLoop):
         the two stages are waited for and timed here (into the metrics
         unless ``record`` is False).
         """
-        fetch = self.cfg.engine.fetch_results
+        fetch = self._fetch_results
         if self._stream is None:
             dev = self._to_device(batch)
             if self.cfg.engine.stage_timing:
@@ -319,16 +271,6 @@ class StereoEngine(ServingLoop):
             event = torch.cuda.Event()
             event.record(self._stream)
             self._wait(event)
-
-    @staticmethod
-    def _wait(event, deadline_s: float = DEVICE_DEADLINE_S) -> None:
-        if event is None:
-            return
-        t_end = time.monotonic() + deadline_s
-        while not event.query():
-            if time.monotonic() > t_end:
-                raise TimeoutError(f"device batch not done after {deadline_s:.0f} s")
-            time.sleep(0.0005)
 
     # ------------------------------------------------------------------
     # Synchronous API
@@ -375,69 +317,5 @@ class StereoEngine(ServingLoop):
     # Workers
     # ------------------------------------------------------------------
 
-    def _dispatch_loop_inner(self) -> None:
-        max_batch = self.cfg.engine.max_batch
-        while not self._stop.is_set():
-            try:
-                frames = [self._feed_q.get(timeout=0.1)]
-            except queue.Empty:
-                continue
-            # Adaptive micro-batch: take everything already queued, up to
-            # max_batch, without waiting for more.
-            while len(frames) < max_batch:
-                try:
-                    frames.append(self._feed_q.get_nowait())
-                except queue.Empty:
-                    break
-            t0 = time.monotonic()
-            outs, event = self._launch(self._assemble_batch(frames))
-            self._put(self._inflight_q, (frames, outs, event, t0))
-            self.metrics.dispatch_batch.record(len(frames))
-
-    def _fetch_loop_inner(self) -> None:
-        nan_guard = self.cfg.engine.nan_guard
-        fetch = self.cfg.engine.fetch_results
-        while not self._stop.is_set():
-            try:
-                frames, outs, event, t0 = self._inflight_q.get(timeout=0.1)
-            except queue.Empty:
-                continue
-            self._wait(event)
-            if fetch:
-                disp, depth, conf, flags = (
-                    o.numpy() if isinstance(o, torch.Tensor) else o for o in outs)
-            else:
-                disp, depth, conf, flags = outs
-                flags = flags.numpy()
-            now = time.monotonic()
-            self.metrics.infer_latency.record(now - t0)
-            emitted = 0
-            for i, frame in enumerate(frames):
-                if nan_guard and flags[i] > 0:
-                    self.metrics.nan_drop()
-                    continue
-                if fetch:
-                    d_i, z_i, c_i = (o[i] if o is not None else None
-                                     for o in (disp, depth, conf))
-                else:
-                    d_i, z_i, c_i = (DeviceBatchView(o, i, event) if o is not None else None
-                                     for o in (disp, depth, conf))
-                left_rgb = None
-                if self._keep_left:
-                    left_rgb = sbs_nv12_to_left_rgb(
-                        np.asarray(frame.sbs_nv12), frame.height, frame.full_width)
-                self.metrics.e2e_latency.record(now - frame.timestamp)
-                self._result_q.put(StereoResult(
-                    index=frame.index,
-                    timestamp=frame.timestamp,
-                    disparity=d_i,
-                    depth_m=z_i,
-                    gt_disparity=frame.gt_disparity,
-                    e2e_latency_s=now - frame.timestamp,
-                    confidence=c_i,
-                    left_rgb=left_rgb,
-                ))
-                emitted += 1
-            if emitted:
-                self.metrics.output_fps.tick(emitted)
-            self._count_in_progress(-len(frames))
+    def _submit(self, frames: list):
+        return self._launch(self._assemble_batch(frames))

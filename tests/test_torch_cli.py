@@ -381,3 +381,37 @@ def test_common_flags_parse_for_every_command(tiny_config, tmp_path):
                    tiny_config, "--device", "cpu", "--debug-nans", "--int8")
     assert rc == 0 and got["steps"] == 1 and np.isfinite(got["final_loss"])
     assert not torch.is_anomaly_enabled()
+
+
+# ---------------------------------------------------------------------------
+# slam
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("loop_closure", [False, True])
+def test_slam_on_gt_disparity_matches_the_jax_cli(loop_closure):
+    """The synthetic trajectory on ground-truth disparity: the JAX command's
+    keys and counts, its ATE bound (0.05 m) and its ATE within 0.01 m."""
+    extra = ["--loop-closure"] if loop_closure else []
+    rc, got = port("slam", "--gt-disparity", "--device", "cpu", *extra)
+    jrc, want = jax_cli("slam", "--gt-disparity", *extra)
+    assert rc == jrc == 0
+    assert set(want) <= set(got) and set(got) - set(want) == {"frames_per_s"}
+    for k in ("frames", "tracked", "disparity_source", "loops_closed"):
+        assert got.get(k) == want.get(k), k
+    assert got["tracked"] == got["frames"] == 12
+    assert got["ate_m"] < 0.05 and abs(got["ate_m"] - want["ate_m"]) < 0.01
+
+
+def test_slam_with_network_disparity_on_the_cpu(tiny_config):
+    """Network disparity (a tiny random float32 network) through the
+    engine's ``infer_with_confidence``, gated: the JAX command's keys."""
+    argv = ["slam", "--frames", "3", "--checkpoint", "none", "--config", tiny_config,
+            "--confidence-gate", "0.5"]
+    rc, got = port(*argv, "--device", "cpu")
+    jrc, want = jax_cli(*argv)
+    assert rc == jrc == 0
+    assert set(want) <= set(got)
+    assert (got["disparity_source"], got["confidence_gate"], got["frames"]) == (
+        "network", 0.5, 3)
+    with pytest.raises(SystemExit, match="confidence-gate needs network"):
+        port("slam", "--gt-disparity", "--confidence-gate", "0.5", "--device", "cpu")

@@ -18,7 +18,9 @@ new = {"data.synthetic", "data.loader", "data.stream", "utils.profiling",
        "ops.kernels.int8_conv", "ops.kernels.numerics", "runtime.training",
        "runtime.train_loop", "runtime.checkpoint", "cli", "ops.int8_gemm", "data.bintensor",
        "data.sceneflow", "data.kitti", "runtime.hostio", "viz.colormap", "viz.server",
-       "utils.debug"}
+       "utils.debug", "runtime.artifact", "slam.se3", "slam.features", "slam.odometry",
+       "slam.ba", "slam.pose_graph", "slam.tracker", "slam.run", "data.euroc",
+       "data.kitti_odometry"}
 missing = {pkg.__name__ + "." + n for n in new} - set(names)
 assert not missing, missing
 assert not bad, bad
