@@ -176,8 +176,26 @@ Phases, each printed with its elapsed seconds:
      against the CPU on the CPU tests' run (every frame's camera centre
      within 1e-4 m, the BA costs within 1e-4 relative); TF32 read off
      at each of the geometry's solves on the card with TF32 on outside.
+ 16. scale-out on one card (``parallel/``): ``initialize`` forms a
+     single-rank NCCL group; a (1, 1) mesh ``StereoEngine`` of the flagship
+     at 720p (bf16 and int8 static, a batch of 8) equals ``StereoEngine`` bit
+     for bit with the same launches, synchronously and streamed; the split
+     GroupNorm entries (``group_norm_stats``, ``group_norm_apply``) at every
+     census shape at batch 8: stats then apply over the whole tensor
+     bit-equal to the fused launch; on the two row tiles that tile = 2
+     gives, each tile's sums and its output from the combined statistics
+     bit-equal to their plain versions, the combined statistics within
+     sqrt(n) ulps of the whole's, both entries timed at the tile shapes
+     beside their byte bounds at batches 8 and 32; two gloo ranks on cuda:0
+     (``scripts/torch_two_ranks_one_card.py``, started at the phase's
+     start): tile = 2 engines of the flagship and CLASSIC on the stored
+     720p scene within the CPU tests' bf16 bounds of the one-card engines,
+     launching the split entries (counted by tile shape: the kernels
+     line's launches) and no fused GroupNorm, and the distributed BA
+     against one rank; both bf16 engines' frames/s in turns at batch 8 once
+     the ranks are done.
 
-Phases 5, 7, 8, 10, 11, 11b and 12 reset the kernels' launch counts just before they
+Phases 5, 7, 8, 10, 11, 11b, 12 and 16 reset the kernels' launch counts just before they
 drive their path and fail if a kernel of it was not launched (the GroupNorm
 on every network's path, as many times a forward as the network has
 GroupNorms).  The held-out scenes are rendered on a host thread from the
@@ -186,7 +204,9 @@ start, beside phases 2-6.
 Before the last line it prints one JSON object with each kernel's launches,
 error, times and bound at each batch (a GroupNorm row's launches: the calls
 at its very shape in the serving runs of phases 5 and 11, counted by hooks
-on the engines' networks and held to the wrapper's count), and, under
+on the engines' networks and held to the wrapper's count; a split GroupNorm
+entry's: rank 0's launches at its very tile shape in phase 16's tile = 2
+dispatches of both networks, counted the same way), and, under
 ``library``, each CLASSIC shape of the int8 library route (not a kernel)
 with its calls, error, times and bound; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero; a watchdog
@@ -207,7 +227,9 @@ import sys
 import time
 from pathlib import Path
 
-WATCHDOG_S = 900
+# The hang guard: the run's limit is 1200 s, the kernels' build included; a
+# minute is left for the process to end.
+WATCHDOG_S = 1140
 faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
 
 ROOT = Path(__file__).resolve().parent
@@ -240,6 +262,12 @@ BF16_PATH = ("nv12_ingest", "group_norm", "correlation", "soft_argmin")
 TRAIN_PATH = ("group_norm", "correlation", "correlation_bwd", "soft_argmin", "soft_argmin_bwd")
 CLASSIC_PATH = ("nv12_ingest", "group_norm", "soft_argmin_cost")
 CLASSIC_TRAIN_PATH = ("group_norm", "soft_argmin_cost", "soft_argmin_cost_bwd")
+# Phase 16: the batch a mesh engine serves, the engines' rounds in turns (frames
+# a round), and the tiled path's kernels (two gloo ranks on the card).
+SCALE_BATCH = 8
+SCALE_ROUNDS, SCALE_FRAMES = 2, 192
+TILE_PATH = ("nv12_ingest", "group_norm_stats", "group_norm_apply", "correlation", "soft_argmin",
+             "soft_argmin_cost")
 GN_BATCHES = (1, 8, 32)         # batches of the GroupNorm phase
 # Backward kernels: (B, h, w) at the serving shapes and the training one
 # (crops of 128x256 at 1/8).
@@ -2477,6 +2505,330 @@ def slam_phase(ctx: dict) -> None:
           f"solves on the card, with TF32 on outside ({time.monotonic() - t:.1f} s)")
 
 
+def start_two_ranks(out: Path) -> list:
+    """``scripts/torch_two_ranks_one_card.py`` as ranks 0 and 1 (gloo on
+    cuda:0), their output captured; rank 0 writes ``out / "out.json"``."""
+    import shutil
+
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    return [subprocess.Popen(
+        [sys.executable, str(ROOT / "scripts" / "torch_two_ranks_one_card.py"), "--rank",
+         str(r), "--world", "2", "--store", str(out), "--out", str(out / "out.json"),
+         "--frames", str(SCALE_BATCH)], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, preexec_fn=_die_with_parent) for r in (0, 1)]
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def tile_halves(rows: int) -> list:
+    """(first row, rows) of each rank's tile of a tensor with ``rows`` rows
+    at ``tile = 2`` (the engine's split: at 1/8, where both networks' 720p
+    images have H / 8 rows, then scaled to the tensor's resolution)."""
+    from hobot_stereonet_tpu_torch.parallel.tiling import split_rows
+
+    coarse = split_rows(H // 8, 2)
+    counts = [c * rows // (H // 8) for c in coarse]
+    return [(sum(counts[:t]), counts[t]) for t in range(2)]
+
+
+def split_group_norm_cases(dev, census) -> list:
+    """The split GroupNorm entries at every shape of ``census`` at a batch of
+    :data:`SCALE_BATCH` (bf16; conv bias, skip and LeakyReLU, the residual
+    blocks' form): ``group_norm_stats``, the statistics finished, then
+    ``group_norm_apply`` over the whole tensor equal the fused launch bit
+    for bit (output, mean, rstd).  Then the two row tiles that ``tile = 2``
+    gives (:func:`tile_halves`), each in a tensor of its own as a rank holds
+    it: each tile's sums, combined, give statistics within 8 sqrt(n)
+    float32 ulps of the scale (the values' RMS for the mean, rstd for
+    rstd; n elements a group) of the whole's (each side is a float32 chain
+    off the exact value by about sqrt(n) ulps: 1e-4 relative at 720x1280),
+    and each tile's output from them is kept: :func:`split_group_norm_plain`
+    and :func:`split_group_norm_rows` hold both entries on each tile to
+    their plain versions.  Returns the cases."""
+    import torch
+
+    from hobot_stereonet_tpu_torch.models.layers import GN_EPS, num_groups
+    from hobot_stereonet_tpu_torch.ops.kernels import group_norm as kg
+
+    gen = torch.Generator(device=dev).manual_seed(16)
+    cases = []
+    for (mult, c, spatial), per_net in sorted(census.items()):
+        g, n = num_groups(c), mult * SCALE_BATCH
+        fmt = torch.channels_last_3d if len(spatial) == 3 else torch.channels_last
+        w = torch.rand(c, device=dev, generator=gen) + 0.5
+        bias = torch.rand(c, device=dev, generator=gen) - 0.5
+        cb = torch.rand(c, device=dev, generator=gen) * 4 - 2
+        x = (torch.randn((n, c) + spatial, device=dev, generator=gen) * 3 + 1).to(
+            torch.bfloat16).contiguous(memory_format=fmt)
+        sk = torch.randn((n, c) + spatial, device=dev, generator=gen).to(
+            torch.bfloat16).contiguous(memory_format=fmt)
+        count = c // g * x[0, 0].numel()
+        with torch.inference_mode():
+            want, w_mean, w_rstd = kg._group_norm_cuda(x, g, w, bias, GN_EPS, conv_bias=cb,
+                                                       skip=sk, activate=True)
+            sums = kg.group_norm_stats(x, g, cb)
+            mean, rstd = kg.statistics_from_sums(sums, count, GN_EPS)
+            got = kg.group_norm_apply(x, w, bias, mean, rstd, conv_bias=cb, skip=sk,
+                                      activate=True)
+            for name, a, b in (("output", got, want), ("mean", mean, w_mean),
+                               ("rstd", rstd, w_rstd)):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"split GroupNorm [{n}, {c}, {spatial}]: stats then "
+                                         f"apply differ from the fused launch in {name}")
+            dim = x.dim() - 2
+            tiles = [dict(x=x.narrow(dim, a, m).contiguous(memory_format=fmt),
+                          sk=sk.narrow(dim, a, m).contiguous(memory_format=fmt))
+                     for a, m in tile_halves(x.shape[dim])]
+            for tl in tiles:
+                tl["sums"] = kg.group_norm_stats(tl["x"], g, cb)
+            mean2, rstd2 = kg.statistics_from_sums(
+                kg.combine_sums([tl["sums"] for tl in tiles]), count, GN_EPS)
+            for tl in tiles:
+                tl["out"] = kg.group_norm_apply(tl["x"], w, bias, mean2, rstd2, conv_bias=cb,
+                                                skip=tl["sk"], activate=True)
+            a = (x + cb.to(x.dtype).view((1, -1) + (1,) * len(spatial))).float()
+            rms = a.reshape(n, g, -1).pow(2).mean(2).sqrt()
+        ulps = 8 * count ** 0.5 * 2.0 ** -24
+        far = {}
+        for name, got2, whole, scale in (("mean", mean2, w_mean, rms), ("rstd", rstd2, w_rstd,
+                                                                         w_rstd)):
+            far[name] = float(((got2 - whole).abs() / scale).max())
+            if far[name] > ulps:
+                raise AssertionError(f"split GroupNorm [{n}, {c}, {spatial}] over row tiles: "
+                                     f"{name} {far[name]} of its scale from the whole's "
+                                     f"(limit {ulps:.3g})")
+        tile_shape = tuple(tiles[0]["x"].shape[2:])
+        phase(f"scale-out: split GroupNorm [{n}, {c}, {'x'.join(map(str, spatial))}] bf16 "
+              f"(x{per_net}): stats then apply == the fused launch bit for bit; its two "
+              f"tile = 2 tiles [{n}, {c}, {'x'.join(map(str, tile_shape))}] combined: "
+              f"statistics within {far} of their scale from the whole's (limit {ulps:.3g})")
+        cases.append(dict(shape=(n, c, spatial), tile_shape=(n, c, tile_shape), per_net=per_net,
+                          g=g, w=w, bias=bias, cb=cb, mean=mean2, rstd=rstd2, tiles=tiles))
+    return cases
+
+
+def split_group_norm_plain(cases) -> list:
+    """Each case's split entries on each tile by their plain versions on the
+    host, from the card's combined statistics: ([(sums, output) a tile],
+    {entry: ms a call, the tiles' mean})."""
+    from hobot_stereonet_tpu_torch.ops.kernels import group_norm as kg
+
+    out = []
+    for cs in cases:
+        host = {k: cs[k].cpu() for k in ("w", "bias", "cb", "mean", "rstd")}
+        got, ms = [], {"group_norm_stats": 0.0, "group_norm_apply": 0.0}
+        for tl in cs["tiles"]:
+            x, sk = tl["x"].cpu(), tl["sk"].cpu()
+            t_stats = time.monotonic()
+            sums = kg.group_norm_stats(x, cs["g"], host["cb"])
+            t_apply = time.monotonic()
+            y = kg.group_norm_apply(x, host["w"], host["bias"], host["mean"], host["rstd"],
+                                    conv_bias=host["cb"], skip=sk, activate=True)
+            t_end = time.monotonic()
+            got.append((sums, y))
+            ms["group_norm_stats"] += (t_apply - t_stats) * 1e3 / len(cs["tiles"])
+            ms["group_norm_apply"] += (t_end - t_apply) * 1e3 / len(cs["tiles"])
+        out.append((got, ms))
+    return out
+
+
+def split_group_norm_rows(cases, plain, flush, card, tile_calls: dict) -> list:
+    """Each split entry on each case's tile = 2 tile (rank 0's), at batch
+    :data:`SCALE_BATCH` and 4 times it (that batch is the first samples,
+    tiled): the card's time beside its byte bound (stats: x read once;
+    apply: x and the skip read, the output written once), and at the
+    smaller batch the plain version's time (:func:`split_group_norm_plain`)
+    and the largest difference from it on either tile (must be 0: the sums
+    and the output bit for bit).  ``tile_calls``: the tile = 2 run's
+    GroupNorm calls on rank 0 by input shape, one launch of each entry a
+    call, which must be the census' count at each tile shape."""
+    import torch
+
+    from hobot_stereonet_tpu_torch.ops.kernels import group_norm as kg
+
+    rows = []
+    src = dict(route="cuda", source="hobot_stereonet_tpu_torch/csrc/group_norm.cu",
+               replaces="hand-written without a Pallas counterpart (flax GroupNorm, "
+                        "hobot_stereonet_tpu/models/layers.py, left to XLA), split at its "
+                        "statistics for row tiles")
+    for cs, (plain_tiles, plain_ms) in zip(cases, plain):
+        n, c, spatial = cs["tile_shape"]
+        key = f"[{n}, {c}, {'x'.join(map(str, spatial))}]"
+        if tile_calls.get(key, 0) != sum(cs["per_net"].values()):
+            raise AssertionError(f"the tile = 2 run's GroupNorms at {key}: "
+                                 f"{tile_calls.get(key, 0)} calls, the census' {cs['per_net']}")
+        g, w, bias, cb = cs["g"], cs["w"], cs["bias"], cs["cb"]
+        t = time.monotonic()
+        errs = {"group_norm_stats": 0.0, "group_norm_apply": 0.0}
+        for tl, (sums, y) in zip(cs["tiles"], plain_tiles):
+            errs["group_norm_stats"] = max(errs["group_norm_stats"],
+                                           float((tl["sums"].cpu() - sums).abs().max()))
+            errs["group_norm_apply"] = max(errs["group_norm_apply"], float(
+                (tl["out"].cpu().float() - y.float()).abs().max()))
+        if any(errs.values()):
+            raise AssertionError(f"split GroupNorm on the tiles {key} against its plain "
+                                 f"version: {errs}")
+        for b_mult in (1, 4):
+            x, sk = cs["tiles"][0]["x"], cs["tiles"][0]["sk"]
+            fmt = torch.channels_last_3d if x.dim() == 5 else torch.channels_last
+            x = x.repeat((b_mult,) + (1,) * (x.dim() - 1)).contiguous(memory_format=fmt)
+            sk = sk.repeat((b_mult,) + (1,) * (x.dim() - 1)).contiguous(memory_format=fmt)
+            mean, rstd = cs["mean"].repeat(b_mult, 1), cs["rstd"].repeat(b_mult, 1)
+            elems = x.numel()
+            with torch.inference_mode():
+                ms = {"group_norm_stats": median_ms(lambda: kg.group_norm_stats(x, g, cb), flush),
+                      "group_norm_apply": median_ms(lambda: kg.group_norm_apply(
+                          x, w, bias, mean, rstd, conv_bias=cb, skip=sk, activate=True), flush)}
+            bounds = {"group_norm_stats": bound(2 * elems, 2 * elems),
+                      "group_norm_apply": bound(3 * 2 * elems, 4 * elems)}
+            batch = SCALE_BATCH * b_mult
+            for name in ms:
+                row = dict(name=name, **src, batch=batch, per_forward=cs["per_net"],
+                           shape=f"[{n * b_mult}, {c}, {'x'.join(map(str, spatial))}]",
+                           tile_key=key, max_abs_err=errs[name], ms=ms[name],
+                           bound=bounds[name],
+                           plain_ms=plain_ms[name] if b_mult == 1 else None, library_ms=None)
+                phase(f"kernel {name} {row['shape']} (a tile = 2 tile) bf16 B={batch}: "
+                      f"{ms[name]:.4f} ms, bound {bounds[name][0]:.4f} ms ({bounds[name][1]}, "
+                      f"{100 * bounds[name][0] / ms[name]:.0f} %)"
+                      + (f", plain (host) {plain_ms[name]:.1f} ms, exact on both tiles; "
+                         f"{tile_calls[key]} launches on the tile = 2 run" if b_mult == 1
+                         else "") + f"; {card}")
+                if b_mult == 1:
+                    rows.append(row)
+        phase(f"scale-out: split GroupNorm on the tiles {key} timed "
+              f"({time.monotonic() - t:.1f} s)")
+    return rows
+
+
+def scale_out_phase(ctx: dict) -> tuple:
+    """Phase 16: scale-out on one card.  Two gloo ranks on cuda:0 (started
+    first, in processes of their own): tile = 2 engines of both networks,
+    whose GroupNorms launch the split entries, against the one-card
+    engines, and the distributed BA.  Meanwhile a single-rank NCCL group
+    (``initialize``) and a (1, 1) mesh ``StereoEngine`` of the flagship at
+    720p (bf16 and int8 static, a batch of :data:`SCALE_BATCH`) against
+    ``StereoEngine``: bit for bit, with the same launches, synchronously
+    and streamed; the split GroupNorm entries at every census shape and on
+    its tile = 2 tiles.  Once the ranks are done (the card otherwise idle):
+    both bf16 engines' frames/s in turns and the split entries' times at
+    the tile shapes.  Returns the kernel rows and the tile = 2 run's
+    GroupNorm calls by input shape."""
+    import numpy as np
+    import torch
+
+    from hobot_stereonet_tpu_torch.config import MeshConfig
+    from hobot_stereonet_tpu_torch.ops.kernels import build
+    from hobot_stereonet_tpu_torch.parallel import distributed
+    from hobot_stereonet_tpu_torch.parallel.mesh import make_mesh
+    from hobot_stereonet_tpu_torch.reference import CALIB_JSON
+    from hobot_stereonet_tpu_torch.runtime.benchmark import fps_in_turns
+    from hobot_stereonet_tpu_torch.runtime.engine import Frame, StereoEngine
+
+    dev, cfg, trained, card = ctx["dev"], ctx["cfg"], ctx["trained"], ctx["card"]
+    t0 = time.monotonic()
+    ranks_dir = ROOT / "build" / "two_ranks"
+    ranks = start_two_ranks(ranks_dir)
+    info = distributed.initialize(f"tcp://localhost:{free_port()}", world_size=1, rank=0)
+    if info["backend"] != "nccl" or info["process_count"] != 1:
+        raise AssertionError(f"initialize: {info}")
+    mesh = make_mesh(MeshConfig(1, 1))
+    phase(f"scale-out: initialize formed a single-rank group: {info}; mesh {tuple(mesh.shape)} "
+          f"{mesh.mesh_dim_names} on {mesh.device_type}")
+    scfg = dataclasses.replace(cfg, engine=dataclasses.replace(
+        cfg.engine, max_batch=SCALE_BATCH, batch_buckets=(1, SCALE_BATCH), drop_on_full=False))
+    feed = np.random.default_rng(16).integers(0, 256, (SCALE_BATCH, 3 * H * W), dtype=np.uint8)
+    batch = torch.from_numpy(feed).to(dev)
+    engines, launches = {}, {}
+    for scheme, kw in (("bf16", {}), ("int8 static", {"static_quant": str(CALIB_JSON)})):
+        single = StereoEngine(scfg, params=trained, emit_confidence=True, **kw)
+        meshed = StereoEngine(scfg, params=trained, emit_confidence=True, mesh=mesh, **kw)
+        if meshed.mesh is None or meshed._tiles is not None:
+            raise AssertionError("the (1, 1) mesh engine does not serve on its mesh")
+        outs, counts = [], []
+        for eng in (single, meshed):
+            eng.warmup(buckets=[SCALE_BATCH])
+            torch.cuda.synchronize()
+            build.reset_launch_counts()
+            with torch.inference_mode():
+                o = [t.cpu() for t in eng.pipeline(batch)]
+            torch.cuda.synchronize()
+            outs.append(o)
+            counts.append(dict(build.launch_counts))
+        for name, a, b in zip(("disparity", "depth", "confidence", "flags"), *outs):
+            if not torch.equal(a, b):
+                raise AssertionError(f"(1, 1) mesh engine, {scheme}: {name} differs from "
+                                     f"StereoEngine's (max |err| {float((a - b).abs().max())})")
+        if counts[0] != counts[1] or any(counts[1].get(k, 0) <= 0 for k in BF16_PATH):
+            raise AssertionError(f"(1, 1) mesh engine, {scheme}: launches {counts[1]}, "
+                                 f"StereoEngine's {counts[0]}")
+        # Streamed: the header, scatter and gather from the dispatch thread.
+        build.reset_launch_counts()
+        for i in range(SCALE_BATCH):
+            meshed.feed(Frame(time.monotonic(), feed[i], H, 2 * W, index=i))
+        meshed.start(warmup=False)
+        meshed.drain(timeout=120.0)
+        res = list(meshed.results(timeout=0.5))
+        meshed.stop()
+        streamed = dict(build.launch_counts)
+        if sorted(r.index for r in res) != list(range(SCALE_BATCH)) or any(
+                not np.array_equal(r.disparity, outs[0][0][r.index].numpy()) for r in res):
+            raise AssertionError(f"(1, 1) mesh engine, {scheme}: streamed results differ")
+        launches[scheme] = counts[1]
+        phase(f"scale-out: (1, 1) NCCL mesh engine, flagship {scheme} at {W}x{H}, a batch of "
+              f"{SCALE_BATCH}: disparity, depth, confidence and flags equal StereoEngine's bit "
+              f"for bit, launches {counts[1]} (StereoEngine's {counts[0]}); streamed: "
+              f"{len(res)} frames bit-equal, launches {streamed}")
+        if scheme == "bf16":
+            engines = {"StereoEngine": single, "mesh (1, 1)": meshed}
+        else:
+            meshed.close()
+    t = time.monotonic()
+    cases = split_group_norm_cases(dev, ctx["census"])
+    phase(f"scale-out: split GroupNorm checked at {len(cases)} shapes and their tiles "
+          f"({time.monotonic() - t:.1f} s)")
+    # The plain versions on a host thread while the two ranks finish.
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        plain = pool.submit(split_group_norm_plain, cases)
+        logs = [proc.communicate(timeout=max(30.0, 420.0 - (time.monotonic() - t0)))[0]
+                for proc in ranks]
+        plain = plain.result()
+    if any(p.returncode for p in ranks):
+        raise AssertionError(f"two gloo ranks on one card: exits {[p.returncode for p in ranks]}; "
+                             f"rank 0: {logs[0][-2500:]}; rank 1: {logs[1][-2500:]}")
+    two = json.loads((ranks_dir / "out.json").read_text())
+    tile_launches = two["launches"]
+    missing = [k for k in TILE_PATH if tile_launches.get(k, 0) <= 0]
+    if missing or tile_launches.get("group_norm"):
+        raise AssertionError(f"tile = 2 path: kernels not launched {missing}; {tile_launches}")
+    phase(f"scale-out: two gloo ranks on cuda:0, (1, 2) mesh bf16 engines of both networks on "
+          f"the stored 720p scene x{SCALE_BATCH}: against the one-card engines "
+          f"{two['tile2_vs_one_card']}; rank 0's launches in the two dispatches {tile_launches} "
+          f"(seconds through the host {two['dispatch_s']}), its GroupNorm calls by shape "
+          f"{two['group_norm_by_shape']}; the distributed BA on a (2, 1) mesh against one rank "
+          f"{two['ba']} ({two['ba_s']:.2f} s); ranks done in {two['seconds']:.1f} s")
+    # Timings, the card otherwise idle.
+    rounds = fps_in_turns(engines, feed, SCALE_FRAMES, rounds=SCALE_ROUNDS)
+    phase(f"scale-out: bf16 engines at batch {SCALE_BATCH}, host frames, in turns "
+          f"({SCALE_ROUNDS} rounds of {SCALE_FRAMES}), frames/s: {rounds}; {card}")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    rows = split_group_norm_rows(cases, plain, flush, card, two["group_norm_by_shape"])
+    for eng in engines.values():
+        eng.close()
+    distributed.shutdown()
+    phase(f"scale-out: done in {time.monotonic() - t0:.1f} s")
+    return rows, two["group_norm_by_shape"]
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2894,9 +3246,15 @@ def main() -> int:
     # 15. SLAM ------------------------------------------------------------------------------
     slam_phase(ctx)
 
+    # 16. scale-out on one card -----------------------------------------------------------
+    scale_rows, tile_calls = scale_out_phase(ctx)
+    rows += scale_rows
+
     def row_launches(r):
         if "key" in r:                            # a GroupNorm shape and form: its launches
             return gn_shapes.get(r["key"], 0)
+        if "tile_key" in r:                       # a split entry at a tile's shape (tile = 2)
+            return tile_calls.get(r["tile_key"], 0)
         if "launch_key" in r:                     # a CLASSIC int8 shape (static engine)
             return c8_calls["static"].get(r["launch_key"], 0)
         return path_launches[(r["name"], r.get("mode") or r.get("scheme"))]

@@ -15,6 +15,8 @@ arguments, defaults and one-line JSON output::
     python -m hobot_stereonet_tpu_torch.cli export --out model.stereoblob [--buckets 1,8]
     python -m hobot_stereonet_tpu_torch.cli infer|stream ... --artifact model.stereoblob
     python -m hobot_stereonet_tpu_torch.cli slam   [--gt-disparity] [--loop-closure]
+    python -m hobot_stereonet_tpu_torch.cli bench-scaling --devices N --device cpu   gloo ranks
+    torchrun --nproc-per-node N -m hobot_stereonet_tpu_torch.cli bench-scaling --devices N
 
 Every command runs on ``cuda:0`` unless ``--device`` names another
 (``--device cpu`` runs the kernels' plain versions).  Images are read and
@@ -573,6 +575,20 @@ CHECKPOINT_HELP = ("weights: a directory with params.npz or a flax-layout .npz (
                    "crowned flagship if installed; 'none' forces random init)")
 
 
+def cmd_bench_scaling(args) -> int:
+    """A data-parallel forward at 1 and N ranks (``runtime/scaling.py``):
+    N gloo ranks spawned on this host with ``--device cpu``, else the ranks
+    ``torchrun`` launched, one a card.  Rank 0 prints the JSON line."""
+    from .runtime.scaling import bench_scaling
+
+    out = bench_scaling(devices=args.devices, per_device_batch=args.per_device_batch,
+                        height=args.height, width=args.width, iters=args.iters,
+                        device=args.device)
+    if out is not None:
+        print(json.dumps(out))
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="hobot_stereonet_tpu_torch.cli", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -736,6 +752,19 @@ def main(argv=None) -> int:
     pc.add_argument("--rtol", type=float, default=1e-4)
     pc.add_argument("--atol", type=float, default=1e-4)
     pc.set_defaults(fn=cmd_compare)
+
+    pbs = sub.add_parser("bench-scaling", help="data-parallel forward at 1 and N ranks (gloo "
+                                               "ranks on the CPU, or torchrun's on cards)")
+    pbs.add_argument("--devices", type=int, default=None,
+                     help="ranks (default: 8 gloo ranks with --device cpu; on cards the "
+                          "number torchrun launched)")
+    pbs.add_argument("--per-device-batch", type=int, default=1)
+    pbs.add_argument("--width", type=int, default=256)
+    pbs.add_argument("--height", type=int, default=128)
+    pbs.add_argument("--iters", type=int, default=5)
+    pbs.add_argument("--device", default=None,
+                     help="cpu: spawn gloo ranks here (default: the launched ranks' cards)")
+    pbs.set_defaults(fn=cmd_bench_scaling)
 
     args = p.parse_args(argv)
     try:

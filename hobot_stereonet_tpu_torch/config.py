@@ -5,8 +5,6 @@ The same frozen dataclasses load the same JSON files
 
   * ``StereoNetConfig.compute_dtype`` is a ``torch.dtype``; JSON keeps its
     name (``"bfloat16"``);
-  * ``mesh`` is carried as a plain dict: the port does not serve on a
-    mesh yet;
   * ``CameraConfig.depth_from_disparity`` takes tensors.
 """
 
@@ -93,6 +91,24 @@ class PreprocessConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """Logical (data, tile) mesh of ``torch.distributed`` ranks, one a card:
+    ``data`` shards the batch of stereo pairs, ``tile`` the image rows with
+    a halo exchange (``parallel/``)."""
+
+    data: int = 1
+    tile: int = 1
+
+    def __post_init__(self):
+        if self.data < 1 or self.tile < 1:
+            raise ValueError(f"mesh axes must be >= 1, got data={self.data} tile={self.tile}")
+
+    @property
+    def num_devices(self) -> int:
+        return self.data * self.tile
+
+
+@dataclass(frozen=True)
 class EngineConfig:
     """Streaming engine: in-flight depth, feed queue, batch buckets."""
 
@@ -138,9 +154,12 @@ class Config:
     model: StereoNetConfig = field(default_factory=StereoNetConfig)
     preprocess: PreprocessConfig = field(default_factory=PreprocessConfig)
     engine: EngineConfig = field(default_factory=EngineConfig)
-    # Carried through unchanged; the port has no mesh serving yet.
-    mesh: Mapping[str, Any] = field(default_factory=lambda: {"data": 1, "tile": 1})
+    mesh: MeshConfig = field(default_factory=MeshConfig)
     slam: SLAMConfig = field(default_factory=SLAMConfig)
+
+    def __post_init__(self):
+        if isinstance(self.mesh, Mapping):          # the old {"data": .., "tile": ..} dicts
+            object.__setattr__(self, "mesh", MeshConfig(**self.mesh))
 
     def to_dict(self) -> dict:
         def enc(obj):
@@ -162,6 +181,7 @@ class Config:
             "model": StereoNetConfig,
             "preprocess": PreprocessConfig,
             "engine": EngineConfig,
+            "mesh": MeshConfig,
             "slam": SLAMConfig,
         }
         kwargs = {}
@@ -175,8 +195,6 @@ class Config:
                     if isinstance(v, list):
                         sub[k] = tuple(v)
                 kwargs[name] = klass(**sub)
-        if "mesh" in d:
-            kwargs["mesh"] = dict(d["mesh"])
         return cls(**kwargs)
 
     @classmethod

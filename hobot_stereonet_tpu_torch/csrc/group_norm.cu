@@ -26,6 +26,14 @@
 //   r   = T(skip + g)                      (a residual block; else r = g)
 //   out = r >= 0 ? r : T(r * T(0.2))       (with the activation; else r)
 //
+// Split at the statistics (row tiles across ranks, parallel/tiling.py): the
+// same launch in two modes.  Mode STATS runs phases 1-5 and writes each
+// (sample, group)'s S1 and S2 (steps 1-2) instead of the output; mode APPLY
+// skips phases 1-4, takes mean and rstd as given and runs step 6 with the
+// fusions (phases 5-6).  The caller combines the ranks' sums and computes
+// steps 3-5 as phase 5 does (ops/kernels/group_norm.py), so that STATS, then
+// APPLY over a whole tensor give the one launch's bits.
+//
 // Every operation is an intrinsic (__fadd_rn, __fmul_rn, __fmaf_rn,
 // __dsqrt_rn, __ddiv_rn, __float2int_rn), so that nvcc's contraction cannot
 // change a rounding.
@@ -269,8 +277,9 @@ struct Params {
   const float* beta;
   void* y;                // [N, P, C] T
   void* r_out;            // [N, P, C] T: r, before the activation, or null
-  float* mean;            // [N, G]
+  float* mean;            // [N, G]; inputs in mode APPLY
   float* rstd;
+  float* gsums;           // [N, G, 2] S1, S2: mode STATS's output
   double* agg;            // [N, 2C, K] segment sums
   float2* ext;            // [N, 2C, K] their prefixes' least and largest
   int* keys;              // [N, 2C, K] predicted spacings
@@ -285,7 +294,10 @@ struct Params {
   int groups;             // G of phases 1 and 3: run groups a segment
   int bias_bf16, activate;
   int sequential;         // phase 4 walks each chain in order; phases 1-3 skipped
+  int mode;               // FUSED, STATS or APPLY
 };
+
+constexpr int FUSED = 0, STATS = 1, APPLY = 2;
 
 __device__ __forceinline__ void count(unsigned long long* clock, int i, int lane) {
   if (clock && lane == 0) atomicAdd(clock + i, 1ull);
@@ -708,15 +720,29 @@ struct Kernel {
     return s;
   }
 
-  // Phase 5: (n, c)'s group statistics and (scale, shift).
+  // Phase 5: (n, c)'s group statistics and (scale, shift); mode STATS: the
+  // group's sums only; mode APPLY: (scale, shift) from the given statistics.
   __device__ void statistics(int n, int c) {
     const int D = C / p.G, g = c / D;
+    if (p.mode == APPLY) {
+      const float scale = __fmul_rn(p.rstd[n * p.G + g], p.gamma[c]);
+      p.sb[static_cast<long long>(n) * C + c] =
+          make_float2(scale, __fmaf_rn(-scale, p.mean[n * p.G + g], p.beta[c]));
+      return;
+    }
     const float* c1 = p.sums + static_cast<long long>(n) * C2 + g * D;
     const float* c2 = c1 + C;
     float S1 = c1[0], S2 = c2[0];
     for (int d = 1; d < D; ++d) {
       S1 = __fadd_rn(S1, c1[d]);
       S2 = __fadd_rn(S2, c2[d]);
+    }
+    if (p.mode == STATS) {
+      if (c == g * D) {
+        p.gsums[(n * p.G + g) * 2] = S1;
+        p.gsums[(n * p.G + g) * 2 + 1] = S2;
+      }
+      return;
     }
     const float inv = __fdiv_rn(1.0f, __ll2float_rn(static_cast<long long>(D) * P));
     const float mu = __fmul_rn(S1, inv);
@@ -806,7 +832,7 @@ group_norm_scan_kernel(Params p, int stride, int tile_elems, int part_offset) {
   const int wtask0 = warp * gridDim.x + blockIdx.x, wtasks = warps * gridDim.x;
 
   stamp(p.clock, 0);
-  if (p.sequential) {            // the chains walked in order by group_norm_walk_kernel
+  if (p.sequential || p.mode == APPLY) {   // walked in order by group_norm_walk_kernel, or given
     stamp(p.clock, 1);
     stamp(p.clock, 2);
     stamp(p.clock, 3);
@@ -841,6 +867,7 @@ group_norm_scan_kernel(Params p, int stride, int tile_elems, int part_offset) {
   for (int t = blockIdx.x * blockDim.x + threadIdx.x; t < p.N * p.C;   // 5
        t += gridDim.x * blockDim.x)
     k.statistics(t / p.C, t % p.C);
+  if (p.mode == STATS) return;
   grid_sync(p.bar);
   stamp(p.clock, 5);
   k.apply();                                                        // 6
@@ -1130,7 +1157,7 @@ int launch(Params p, unsigned char* work, cudaStream_t stream) {
                                                       smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const Layout l = layout(p.N, p.C, p.sequential ? 0 : p.K);
+  const Layout l = layout(p.N, p.C, p.sequential || p.mode == APPLY ? 0 : p.K);
   p.agg = reinterpret_cast<double*>(work + l.agg);
   p.ext = reinterpret_cast<float2*>(work + l.ext);
   p.keys = reinterpret_cast<int*>(work + l.keys);
@@ -1140,7 +1167,7 @@ int launch(Params p, unsigned char* work, cudaStream_t stream) {
   p.bar = reinterpret_cast<unsigned*>(work + l.bar);
   e = cudaMemsetAsync(p.bar, 0, 2 * sizeof(unsigned), stream);
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (p.sequential) {
+  if (p.sequential && p.mode != APPLY) {
     e = launch_walk<T>(p, stream);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
@@ -1159,10 +1186,12 @@ int launch(Params p, unsigned char* work, cudaStream_t stream) {
 extern "C" int hst_group_norm(const void* x, const void* bias, int bias_bf16, const void* skip,
                               int activate, const void* gamma, const void* beta, void* y,
                               void* r_out, void* mean, void* rstd, void* work,
-                              long long work_bytes, void* clock, int sequential, int N,
-                              int C, int P, int G, int R, double eps, int is_bf16, void* stream) {
+                              long long work_bytes, void* clock, int sequential, int mode,
+                              void* gsums, int N, int C, int P, int G, int R, double eps,
+                              int is_bf16, void* stream) {
   const int elem = is_bf16 ? 2 : 4;
   if (N <= 0 || C <= 0 || P <= 0 || G <= 0 || C % G || C > MAX_C || R < 2 || R > 128 ||
+      mode < FUSED || mode > APPLY || (mode == STATS) != (gsums != nullptr) ||
       (R * C * elem) % 4 || static_cast<long long>(P) * C > (1LL << 30) ||
       static_cast<long long>(N) * P * C > (1LL << 40) ||
       (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(skip) |
@@ -1176,9 +1205,11 @@ extern "C" int hst_group_norm(const void* x, const void* bias, int bias_bf16, co
   p.rstd = static_cast<float*>(rstd); p.eps = eps;
   p.N = N; p.C = C; p.P = P; p.G = G; p.R = R; p.K = (P + LANES * R - 1) / (LANES * R);
   p.bias_bf16 = bias_bf16; p.activate = activate; p.sequential = sequential;
+  p.mode = mode; p.gsums = static_cast<float*>(gsums);
   p.clock = static_cast<unsigned long long*>(clock);
   if (static_cast<long long>(p.N) * p.K > (1LL << 31) - 1 ||
-      layout(N, C, sequential ? 0 : p.K).bytes > work_bytes || (reinterpret_cast<uintptr_t>(work) & 255)) {
+      layout(N, C, sequential || mode == APPLY ? 0 : p.K).bytes > work_bytes ||
+      (reinterpret_cast<uintptr_t>(work) & 255)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto* w = static_cast<unsigned char*>(work);

@@ -25,6 +25,13 @@ launch on the card for the bias add, the GroupNorm, the residual add and
 the LeakyReLU, each rounding where the unfused ops round (on the CPU, those
 very ops).
 
+Under row tiling (``parallel/tiling.py``, a forward split by rows over the
+ranks of a tile group) a conv runs its call on its tile extended by the
+rows its taps reach and crops the output back to the tile, and a GroupNorm
+splits at its statistics: ``group_norm_stats`` over the tile's rows, the
+ranks' sums combined in rank order, then ``group_norm_apply`` with the
+same fusions.
+
 Weights are float32 master weights, as flax's ``param_dtype=float32``: a
 conv computes in its ``compute_dtype`` (set from the config by
 :func:`set_compute_dtype`; None means its weight's dtype) and casts the
@@ -35,14 +42,17 @@ bits.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.kernels.group_norm import group_norm_fused, leaky_relu
+from ..ops.kernels.group_norm import (group_norm_apply, group_norm_fused, group_norm_stats,
+                                      leaky_relu)
 from ..ops.kernels.int8_conv import same_pads
+from ..parallel import tiling
 
 GN_EPS = 1e-6
 
@@ -67,6 +77,13 @@ class SameConv2d(nn.Conv2d):
     def forward(self, x: torch.Tensor, add_bias: bool = True) -> torch.Tensor:
         """The conv in the compute dtype; ``add_bias=False``: its sum before
         the bias add, which the caller then makes."""
+        tiles = tiling.active()
+        if tiles is not None:
+            return tiles.conv(lambda t: self._conv(t, add_bias), x, 2, self.kernel_size[0],
+                              self.stride[0], self.dilation[0])
+        return self._conv(x, add_bias)
+
+    def _conv(self, x: torch.Tensor, add_bias: bool) -> torch.Tensor:
         dt = self.compute_dtype or self.weight.dtype
         x, wt = x.to(dt), self.weight.to(dt)
         kh, kw = self.kernel_size
@@ -94,6 +111,13 @@ class SameConv3d(nn.Conv3d):
         super().__init__(in_ch, out_ch, kernel, padding=kernel // 2)
 
     def forward(self, x: torch.Tensor, add_bias: bool = True) -> torch.Tensor:
+        tiles = tiling.active()
+        if tiles is not None:                  # rows are dim 3 of [N, C, D, H, W]
+            return tiles.conv(lambda t: self._conv(t, add_bias), x, 3, self.kernel_size[1],
+                              1, 1)
+        return self._conv(x, add_bias)
+
+    def _conv(self, x: torch.Tensor, add_bias: bool) -> torch.Tensor:
         dt = self.compute_dtype or self.weight.dtype
         y = F.conv3d(x.to(dt), self.weight.to(dt), None, 1, self.padding)
         return y + self.bias.to(dt).view(1, -1, 1, 1, 1) if add_bias else y
@@ -130,6 +154,9 @@ class GroupNorm(nn.GroupNorm):
                 skip: Optional[torch.Tensor] = None, activate: bool = False) -> torch.Tensor:
         """GroupNorm of ``x``; with ``conv_bias``, ``skip`` or ``activate``:
         ``leaky_relu([skip +] GroupNorm(x + conv_bias.to(x.dtype)))``."""
+        tiles = tiling.active()
+        if tiles is not None:
+            return self._tiled(tiles, x, conv_bias, skip, activate)
         if x.dtype == torch.float64:
             a = x if conv_bias is None else x + conv_bias.to(x.dtype).view(
                 (1, -1) + (1,) * (x.dim() - 2))
@@ -139,6 +166,19 @@ class GroupNorm(nn.GroupNorm):
             return leaky_relu(r) if activate else r
         return group_norm_fused(x, self.num_groups, self.weight.float(), self.bias.float(),
                                 self.eps, conv_bias=conv_bias, skip=skip, activate=activate)
+
+    def _tiled(self, tiles, x, conv_bias, skip, activate):
+        """The GroupNorm of a row tile: the statistics of the whole image from
+        every rank's sums, then this tile's output (inference only)."""
+        if torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad for t in (x, self.weight, conv_bias, skip)):
+            raise NotImplementedError("GroupNorm on row tiles runs inference only; "
+                                      "the sharded train step (its backward) comes next")
+        sums = group_norm_stats(x, self.num_groups, conv_bias)
+        count = x.shape[1] // self.num_groups * math.prod(x.shape[2:])
+        mean, rstd = tiles.group_statistics(sums, count, self.eps)
+        return group_norm_apply(x, self.weight.float(), self.bias.float(), mean, rstd,
+                                conv_bias=conv_bias, skip=skip, activate=activate)
 
 
 class ConvBlock(nn.Module):

@@ -62,9 +62,10 @@ _SIGNATURES = {
     # stream
     "hst_int8_epilogue": (_P, _L, _L, _I, _L, _P, _I, _P, _P, _P, _I, _P),
     # x, conv bias, bias is bf16, skip, activate, gamma, beta, y, r, mean, rstd,
-    # workspace, its bytes, phase clock, sequential, N, C, P, G, R, eps, is_bf16, stream
+    # workspace, its bytes, phase clock, sequential, mode, group sums, N, C, P, G, R, eps,
+    # is_bf16, stream
     "hst_group_norm": (_P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _L, _P,
-                       _I, _I, _I, _I, _I, _I, ctypes.c_double, _I, _P),
+                       _I, _I, _P, _I, _I, _I, _I, _I, ctypes.c_double, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -56,7 +56,10 @@ def _memory_format(x: torch.Tensor):
     return torch.channels_last_3d if x.dim() == 5 else torch.channels_last
 
 
-def _check(x: torch.Tensor, num_groups: int, weight: torch.Tensor, bias: torch.Tensor) -> None:
+def _check(x: torch.Tensor, num_groups: int, weight: Optional[torch.Tensor],
+           bias: Optional[torch.Tensor]) -> None:
+    """Refuse what the kernel does not take; None skips ``weight`` and
+    ``bias`` (mode STATS reads neither)."""
     if x.dtype not in DTYPES:
         raise TypeError(f"{NAME}: expected bfloat16 or float32 input, got {x.dtype}")
     if x.dim() not in (4, 5):
@@ -65,7 +68,7 @@ def _check(x: torch.Tensor, num_groups: int, weight: torch.Tensor, bias: torch.T
     if num_groups <= 0 or c % num_groups:
         raise ValueError(f"{NAME}: {num_groups} groups do not divide {c} channels")
     for name, t in (("weight", weight), ("bias", bias)):
-        if t.dtype != torch.float32 or t.shape != (c,):
+        if t is not None and (t.dtype != torch.float32 or t.shape != (c,)):
             raise ValueError(f"{NAME}: {name} must be float32 [{c}], got {t.dtype} "
                              f"{tuple(t.shape)}")
 
@@ -377,9 +380,9 @@ def scan_sums_model(a: np.ndarray, bf16: bool, r: int = 0):
     return s1, s2, counts
 
 
-def statistics_plain(x: torch.Tensor, num_groups: int, eps: float):
-    """(mean, rstd), each float32 [N, G], of bf16 or float32 ``x``
-    (steps 1-5 of the module docstring)."""
+def group_sums_plain(x: torch.Tensor, num_groups: int) -> torch.Tensor:
+    """Each (sample, group)'s (S1, S2), float32 [N, G, 2] on ``x``'s device,
+    of bf16 or float32 ``x`` (steps 1-2 of the module docstring)."""
     n, c = x.shape[:2]
     d = c // num_groups
     a = x.detach().movedim(1, -1).reshape(n, -1, c).float().cpu().numpy()   # [N, P, C]
@@ -394,11 +397,25 @@ def statistics_plain(x: torch.Tensor, num_groups: int, eps: float):
         s2 = _fma_square_sums(a)
     g1 = np.cumsum(s1.reshape(n, num_groups, d), axis=2, dtype=np.float32)[..., -1]
     g2 = np.cumsum(s2.reshape(n, num_groups, d), axis=2, dtype=np.float32)[..., -1]
-    s = np.float32(1) / np.float32(d * a.shape[1])
-    mean = torch.from_numpy(g1 * s)
-    var = fma_f32(torch.from_numpy(g2), float(s), -(mean * mean)).clamp_min(0.0)
+    return torch.from_numpy(np.stack([g1, g2], -1)).to(x.device)
+
+
+def statistics_from_sums(sums: torch.Tensor, count: int, eps: float):
+    """Steps 3-5 of the module docstring: (mean, rstd), each float32 [N, G],
+    from the group sums float32 [N, G, 2] of ``count`` (D * P) elements, on
+    the sums' device, each rounding as the kernel's phase 5 makes it."""
+    s = float(torch.tensor(1.0) / torch.tensor(float(count), dtype=torch.float32))
+    mean = sums[..., 0] * s
+    var = fma_f32(sums[..., 1].contiguous(), s, -(mean * mean)).clamp_min(0.0)
     rstd = (1.0 / torch.sqrt(var.double() + eps)).float()
-    return mean.to(x.device), rstd.to(x.device)
+    return mean, rstd
+
+
+def statistics_plain(x: torch.Tensor, num_groups: int, eps: float):
+    """(mean, rstd), each float32 [N, G], of bf16 or float32 ``x``
+    (steps 1-5 of the module docstring)."""
+    count = x.shape[1] // num_groups * math.prod(x.shape[2:])
+    return statistics_from_sums(group_sums_plain(x, num_groups), count, eps)
 
 
 def scale_bias(mean: torch.Tensor, rstd: torch.Tensor, weight: torch.Tensor,
@@ -417,11 +434,18 @@ def group_norm_plain(x: torch.Tensor, num_groups: int, weight: torch.Tensor,
     -> (y in ``x``'s dtype and memory format, mean, rstd float32 [N, G])."""
     _check(x, num_groups, weight, bias)
     mean, rstd = statistics_plain(x, num_groups, eps)
+    return normalize_plain(x, weight, bias, mean, rstd), mean, rstd
+
+
+def normalize_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                    mean: torch.Tensor, rstd: torch.Tensor) -> torch.Tensor:
+    """Step 6 of the module docstring from given (mean, rstd) float32 [N, G]:
+    ``fma(x, scale, shift)`` in ``x``'s dtype and memory format."""
     scale, shift = scale_bias(mean, rstd, weight.detach().float(), bias.detach().float())
     view = (x.shape[0], x.shape[1]) + (1,) * (x.dim() - 2)
     y = fma_f32(x.detach().float(), scale.view(view), shift.view(view))
     out = torch.empty_like(x, memory_format=torch.preserve_format)
-    return out.copy_(y), mean, rstd
+    return out.copy_(y)
 
 
 def workspace_bytes(n: int, c: int, p: int, r: int, sequential: bool) -> int:
@@ -461,22 +485,37 @@ def _group_norm_cuda(x: torch.Tensor, num_groups: int, weight: torch.Tensor,
     return _launch(x, num_groups, weight, bias, eps, conv_bias, skip, activate)[:3]
 
 
+# Modes of a launch (csrc/group_norm.cu): the fused one, the statistics'
+# sums alone, the output from given statistics.
+FUSED, STATS, APPLY = 0, 1, 2
+_MODE_NAMES = {FUSED: NAME, STATS: NAME + "_stats", APPLY: NAME + "_apply"}
+
+
 def _launch(x: torch.Tensor, num_groups: int, weight: torch.Tensor, bias: torch.Tensor,
             eps: float, conv_bias: Optional[torch.Tensor], skip: Optional[torch.Tensor],
             activate: bool, keep_r: bool = False, sequential: Optional[bool] = None,
-            clock: Optional[torch.Tensor] = None):
+            clock: Optional[torch.Tensor] = None, mode: int = FUSED,
+            stats: Optional[tuple] = None):
     """One launch of the kernel -> (out, mean, rstd, r); r (the value
     before the activation) only with ``keep_r``.  ``sequential``: walk the
     chains in order (True) or scan them (False); None: :func:`walks_in_order`.
     ``clock``: None, or a CUDA int64 tensor of 9 (diagnostics): the launch
     overwrites its first 7 with the device time (ns) at its start and at the
     end of each of its six phases (block 0's view) and adds to the last 2
-    its ordered walk's windows and the segments it stepped alone."""
+    its ordered walk's windows and the segments it stepped alone.
+
+    ``mode=STATS`` -> (sums [N, G, 2] float32, the group's S1 and S2, None,
+    None, None; no output is written, and ``weight`` and ``bias`` are not
+    read: they may be None); ``mode=APPLY`` with ``stats`` = (mean, rstd) -> the
+    output from them (steps 1-5 skipped).  Each counts its launch under its
+    own name."""
+    if mode == STATS:
+        weight = bias = None
     _check(x, num_groups, weight, bias)
     fmt = _memory_format(x)
     if not x.is_contiguous(memory_format=fmt):
         raise ValueError(f"{NAME}: the kernel takes {fmt} input, got strides {x.stride()}")
-    if weight.device != x.device or bias.device != x.device:
+    if mode != STATS and (weight.device != x.device or bias.device != x.device):
         raise ValueError(f"{NAME}: weight and bias must be on {x.device}")
     if conv_bias is not None and (conv_bias.dtype not in (torch.float32, torch.bfloat16)
                                   or conv_bias.shape != (x.shape[1],)
@@ -494,10 +533,22 @@ def _launch(x: torch.Tensor, num_groups: int, weight: torch.Tensor, bias: torch.
     p = math.prod(x.shape[2:])
     r = scan_run_length(c)
     sequential = walks_in_order(n, c) if sequential is None else bool(sequential)
-    y = torch.empty_like(x, memory_format=fmt)
+    if mode == APPLY:
+        mean, rstd = (t.contiguous() for t in stats)
+        if any(t.dtype != torch.float32 or t.shape != (n, num_groups) or t.device != x.device
+               for t in (mean, rstd)):
+            raise ValueError(f"{NAME}: mean and rstd must be float32 [{n}, {num_groups}] on "
+                             f"{x.device}")
+        sequential = True                  # no scan workspace: steps 1-5 are given
+    elif mode == FUSED:
+        mean = torch.empty((n, num_groups), dtype=torch.float32, device=x.device)
+        rstd = torch.empty_like(mean)
+    else:                                  # the kernel writes neither in mode STATS
+        mean = rstd = None
+    sums = torch.empty((n, num_groups, 2), dtype=torch.float32, device=x.device) \
+        if mode == STATS else None
+    y = torch.empty_like(x, memory_format=fmt) if mode != STATS else x.new_empty(0)
     pre = torch.empty_like(x, memory_format=fmt) if keep_r else None
-    mean = torch.empty((n, num_groups), dtype=torch.float32, device=x.device)
-    rstd = torch.empty_like(mean)
     if x.numel():
         work = torch.empty(workspace_bytes(n, c, p, r, sequential), dtype=torch.uint8,
                            device=x.device)
@@ -505,13 +556,19 @@ def _launch(x: torch.Tensor, num_groups: int, weight: torch.Tensor, bias: torch.
             x.data_ptr(), conv_bias.contiguous().data_ptr() if conv_bias is not None else None,
             int(conv_bias is not None and conv_bias.dtype == torch.bfloat16),
             skip.data_ptr() if skip is not None else None, int(activate),
-            weight.contiguous().data_ptr(), bias.contiguous().data_ptr(), y.data_ptr(),
-            pre.data_ptr() if keep_r else None, mean.data_ptr(), rstd.data_ptr(),
+            *(t.contiguous().data_ptr() if t is not None else None for t in (weight, bias)),
+            y.data_ptr() if mode != STATS else None, pre.data_ptr() if keep_r else None,
+            *(t.data_ptr() if t is not None else None for t in (mean, rstd)),
             work.data_ptr(), work.numel(),
-            clock.data_ptr() if clock is not None else None, int(sequential), n, c, p,
+            clock.data_ptr() if clock is not None else None, int(sequential), mode,
+            sums.data_ptr() if sums is not None else None, n, c, p,
             num_groups, r, float(eps), int(x.dtype == torch.bfloat16), build.stream_handle(x))
-        build.check(NAME, err)
-        build.launch_counts[NAME] += 1
+        build.check(_MODE_NAMES[mode], err)
+        build.launch_counts[_MODE_NAMES[mode]] += 1
+    elif sums is not None:
+        sums.zero_()
+    if mode == STATS:
+        return sums, mean, rstd, pre
     return y, mean, rstd, pre
 
 
@@ -648,3 +705,88 @@ def group_norm(x: torch.Tensor, num_groups: int, weight: torch.Tensor, bias: tor
     activation (the kernel for a CUDA tensor in channels-last memory, the
     plain version for a CPU tensor); differentiable."""
     return group_norm_fused(x, num_groups, weight, bias, eps)
+
+
+# ---------------------------------------------------------------------------
+# The entries split at the statistics (row tiles across ranks)
+# ---------------------------------------------------------------------------
+
+
+def group_norm_stats(x: torch.Tensor, num_groups: int,
+                     conv_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Each (sample, group)'s (S1, S2) of ``a = x + conv_bias.to(x.dtype)``,
+    float32 [N, G, 2] (steps 1-2 of the module docstring, the chains over
+    ``x``'s positions in order): the kernel in mode STATS for a CUDA tensor
+    (one launch), :func:`group_sums_plain` for a CPU tensor.  Combine
+    ranks' sums with :func:`combine_sums`, then :func:`statistics_from_sums`."""
+    return torch.ops.hst.group_norm_stats(x, conv_bias, num_groups)
+
+
+def group_norm_apply(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                     mean: torch.Tensor, rstd: torch.Tensor,
+                     conv_bias: Optional[torch.Tensor] = None,
+                     skip: Optional[torch.Tensor] = None, activate: bool = False
+                     ) -> torch.Tensor:
+    """:func:`group_norm_fused`'s output from given (mean, rstd) float32
+    [N, G]: the kernel in mode APPLY for a CUDA tensor (one launch), the
+    unfused ops for a CPU tensor.  :func:`group_norm_stats`, then
+    :func:`statistics_from_sums`, then this over one whole tensor give
+    :func:`group_norm_fused`'s bits."""
+    return torch.ops.hst.group_norm_apply(x, weight, bias, mean, rstd, conv_bias, skip,
+                                          activate)
+
+
+def combine_sums(parts: "list[torch.Tensor]") -> torch.Tensor:
+    """Ranks' group sums (each float32 [N, G, 2]) added in float64 in the
+    order given (rank order), rounded once to float32: one part comes back
+    as it is."""
+    total = parts[0].double()
+    for part in parts[1:]:
+        total = total + part.double()
+    return total.float()
+
+
+def _with_bias(x: torch.Tensor, conv_bias: Optional[torch.Tensor]) -> torch.Tensor:
+    return x if conv_bias is None else x + _channel_view(conv_bias.to(x.dtype), x)
+
+
+@torch.library.custom_op("hst::group_norm_stats", mutates_args=(), device_types="cpu")
+def _group_norm_stats_op(x: torch.Tensor, conv_bias: Optional[torch.Tensor],
+                         num_groups: int) -> torch.Tensor:
+    """``hst::group_norm_stats``: :func:`group_norm_stats`."""
+    return group_sums_plain(_with_bias(x, conv_bias), num_groups)
+
+
+@_group_norm_stats_op.register_fake
+def _(x, conv_bias, num_groups):
+    return x.new_empty((x.shape[0], num_groups, 2), dtype=torch.float32)
+
+
+@_group_norm_stats_op.register_kernel("cuda")
+def _group_norm_stats_cuda(x, conv_bias, num_groups):
+    return _launch(x, num_groups, None, None, 0.0, conv_bias, None, False, mode=STATS)[0]
+
+
+@torch.library.custom_op("hst::group_norm_apply", mutates_args=(), device_types="cpu")
+def _group_norm_apply_op(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                         mean: torch.Tensor, rstd: torch.Tensor,
+                         conv_bias: Optional[torch.Tensor], skip: Optional[torch.Tensor],
+                         activate: bool) -> torch.Tensor:
+    """``hst::group_norm_apply``: :func:`group_norm_apply`."""
+    _check(x, mean.shape[1], weight, bias)
+    g = normalize_plain(_with_bias(x, conv_bias), weight, bias, mean, rstd)
+    r = g if skip is None else skip + g
+    return leaky_relu(r) if activate else r
+
+
+@_group_norm_apply_op.register_fake
+def _(x, weight, bias, mean, rstd, conv_bias, skip, activate):
+    fmt = _memory_format(x) if x.is_contiguous(memory_format=_memory_format(x)) \
+        else torch.preserve_format
+    return torch.empty_like(x, memory_format=fmt)
+
+
+@_group_norm_apply_op.register_kernel("cuda")
+def _group_norm_apply_cuda(x, weight, bias, mean, rstd, conv_bias, skip, activate):
+    return _launch(x, mean.shape[1], weight, bias, 0.0, conv_bias, skip, activate,
+                   mode=APPLY, stats=(mean, rstd))[0]

@@ -36,6 +36,12 @@ fuses a multiply followed by an add (``ops/kernels/numerics.py``).  So:
   * the epilogue is ``fma(float(acc), s_x * s_k, bias)``, rounded once to
     the compute dtype.
 
+Under row tiling (``parallel/tiling.py``) a conv runs its route on its
+tile extended by the rows its taps reach and crops the output back, as the
+float convs do (``models/layers.py``); the dynamic scheme's per-sample max
+is taken over the whole image, an all-reduce (max) over the tile group.
+Static scales are the same on every rank already.
+
 A conv quantizes its argument as it comes, as flax's interceptor does;
 the networks cast the feature tower's and each refinement's input to the
 compute dtype first, as the flax modules do.  Per-sample scales and fixed
@@ -54,6 +60,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..models.layers import SameConv2d, SameConv3d, cast_convs
+from ..parallel import tiling
 from . import int8_gemm
 from .kernels import int8_conv as k8
 from .kernels.numerics import reciprocal_f32
@@ -91,10 +98,14 @@ def quantize_weight(weight: torch.Tensor, baked: bool = False):
 
 def activation_scale(x: torch.Tensor) -> torch.Tensor:
     """Per-sample scale of an activation [N, ...]: ``max(max|x| / 127, 1e-12)``,
-    float32 [N], as the dynamic scheme computes it."""
+    float32 [N], as the dynamic scheme computes it; of a row tile, the max
+    over the tile group's rows (the whole image's)."""
     amax = torch.linalg.vector_norm(x, float("inf"), dim=tuple(range(1, x.dim())))
     if x.device.type == "cuda":
         amax_calls["cuda"] += 1
+    tiles = tiling.active()
+    if tiles is not None:
+        amax = tiles.all_max(amax)
     return _scale(amax, baked=False)
 
 
@@ -161,6 +172,15 @@ class Int8Conv(nn.Module):
             sx, qs = self.act_scale, self.act_mult
         else:
             sx = qs = activation_scale(x)
+        tiles = tiling.active()
+        if tiles is not None:                  # rows: dim 2 of NCHW, 3 of NCDHW
+            kernel = self.q_weight.shape[x.dim() - 2]
+            return tiles.conv(lambda t: self._conv(t, sx, qs), x, x.dim() - 2, kernel,
+                              self.stride, self.dilation)
+        return self._conv(x, sx, qs)
+
+    def _conv(self, x: torch.Tensor, sx: torch.Tensor, qs: torch.Tensor) -> torch.Tensor:
+        x = x.contiguous(memory_format=k8.memory_format(x.dim()))
         if x.device.type == "cpu":
             return k8.int8_conv(x, self.q_weight, self.packed_weight, self.weight_scale,
                                 self.bias, sx, qs, stride=self.stride, divide=not self.static,

@@ -41,9 +41,27 @@ Options (``cfg.engine``):
 
 w8a8 (``int8=True``, dynamic scales, or ``static_quant=`` a calibration
 dict or ``calib.json`` path, static scales): every conv runs as the int8
-conv kernel (``ops/quant.py``), quantized once from the float32 weights.
+conv kernel where it takes the conv, else the exact library route
+(``ops/quant.py``), quantized once from the float32 weights.
 
-Not served here: mesh serving (``_check_supported``).
+On a (data, tile) mesh (``mesh=`` a ``DeviceMesh`` from ``parallel.mesh``,
+or ``cfg.mesh`` with more than one device; every rank of the process group
+builds the engine, SPMD), as the JAX engine serves on one:
+  * rank 0 owns ``feed`` and ``poll``; every other rank runs :meth:`serve`
+    until rank 0 calls :meth:`close`;
+  * each dispatch broadcasts a header (kind, bucket), then
+    scatters the frames: data rank d takes the d-th slice of the batch (of
+    each ``device_microbatch`` chunk), the ranks of a tile group the same
+    frames; each rank ingests its frames whole, keeps its tile's rows and
+    runs the network on them (``parallel/tiling.py``: halos, the
+    GroupNorm's statistics over the tile group);
+  * rank 0 gathers disparity, depth and confidence and computes the
+    per-frame non-finite flags from the gathered maps;
+  * batch buckets that do not divide by ``data`` are dropped (none left
+    raises), and a ``device_microbatch`` that is not a multiple of ``data``
+    raises ``ValueError``; ring-fed frames are resolved on the host (the
+    ring lives on one card); ``stage_timing`` is not split into stages;
+  * the synchronous ``infer*`` calls run on rank 0's card alone.
 """
 
 from __future__ import annotations
@@ -55,6 +73,8 @@ import numpy as np
 import torch
 
 from ..config import Config, resolve_device
+from ..parallel import mesh as mesh_mod
+from ..parallel import tiling
 from ..data.stream import Frame, RingSlot
 from ..models import build_model, model_name
 from ..ops import preprocess as pp
@@ -82,13 +102,12 @@ def serving_network(model, params: Optional[Mapping], cfg: Config, device: torch
     return serving_model(model, int8, static_quant)
 
 
-def _check_supported(cfg: Config) -> None:
-    if int(cfg.mesh.get("data", 1)) * int(cfg.mesh.get("tile", 1)) > 1:
-        raise NotImplementedError("not served by the port yet: mesh serving")
+# Dispatch headers on a mesh: (kind, bucket).
+_RUN, _STOP = 1, 0
 
 
 class StereoEngine(ServingLoop):
-    """Feed-many streaming engine on one device.
+    """Feed-many streaming engine on one device, or on a (data, tile) mesh.
 
     Usage::
 
@@ -107,8 +126,10 @@ class StereoEngine(ServingLoop):
     means random weights from seed 0 (:func:`~.weights.random_flax_params`),
     or a built network's own weights.  ``int8=True`` serves w8a8 with
     dynamic scales, ``static_quant`` (a calibration dict or a ``calib.json``
-    path) with calibrated ones; a network with convs the int8 kernel does
-    not take (CLASSIC's 3-D and dilated convs) raises ``NotImplementedError``.
+    path) with calibrated ones, both networks (CLASSIC's 3-D and dilated
+    convs through the exact library route).  ``mesh``: a (data, tile)
+    ``DeviceMesh`` (module docstring); None takes ``cfg.mesh`` when it has
+    more than one device.
     """
 
     _thread_prefix = "engine"
@@ -116,8 +137,12 @@ class StereoEngine(ServingLoop):
     def __init__(self, cfg: Config = Config(), params: Optional[Mapping] = None,
                  compute_depth: bool = True, emit_confidence: bool = False,
                  keep_left: bool = False, int8: bool = False, static_quant=None,
-                 device: "str | torch.device | None" = None, model="fast"):
-        _check_supported(cfg)
+                 device: "str | torch.device | None" = None, model="fast", mesh=None):
+        if mesh is None and cfg.mesh.num_devices > 1:
+            mesh = mesh_mod.make_mesh(cfg.mesh)
+        self.mesh = mesh
+        if device is None and mesh is not None and mesh_mod.device_type() == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
         self.device = resolve_device(device, "StereoEngine")
         self.cfg = cfg
         H, W = cfg.camera.height, cfg.camera.width
@@ -141,6 +166,8 @@ class StereoEngine(ServingLoop):
         self._compute_depth = compute_depth
         self._emit_confidence = emit_confidence
         self._buckets = cfg.engine.batch_buckets
+        if mesh is not None:
+            self._init_mesh(mesh)
         self._stream = None
         if self.device.type == "cuda":
             self._stream = torch.cuda.Stream(self.device)
@@ -156,11 +183,16 @@ class StereoEngine(ServingLoop):
         return pp.nv12_ingest(sbs_batch, H, 2 * W, self.cfg.preprocess)
 
     def _network(self, x: torch.Tensor):
+        disp, depth, conf = self._maps(x)
+        return disp, depth, conf, nonfinite_flags(disp)
+
+    def _maps(self, x: torch.Tensor):
+        """(disparity, depth | None, confidence | None) of model inputs."""
         out = self.model(*pp.split_model_input(x))
         disp = out["disparity"]
         depth = disparity_to_depth_m(disp, self.cfg.camera) if self._compute_depth else None
         conf = out["confidence"] if self._emit_confidence else None
-        return disp, depth, conf, nonfinite_flags(disp)
+        return disp, depth, conf
 
     @torch.inference_mode()
     def pipeline(self, sbs_batch: torch.Tensor):
@@ -168,12 +200,17 @@ class StereoEngine(ServingLoop):
         (disparity [B,H,W], depth | None, confidence | None, flags [B]).
 
         With ``device_microbatch = m`` a batch larger than ``m`` (and a
-        multiple of it) runs as consecutive chunks of ``m`` frames."""
-        m = self.cfg.engine.device_microbatch
+        multiple of it) runs as consecutive chunks of ``m`` frames.  On a
+        mesh (rank 0 only, the others serving): one dispatch over the mesh."""
+        if self.mesh is not None:
+            return self._mesh_pipeline(sbs_batch)
+        return self._chunked(sbs_batch, self.cfg.engine.device_microbatch, self._network)
+
+    def _chunked(self, sbs_batch: torch.Tensor, m: int, network):
         b = sbs_batch.shape[0]
         if not (m and b > m and b % m == 0):
-            return self._network(self._ingest(sbs_batch))
-        chunks = [self._network(self._ingest(c)) for c in sbs_batch.split(m)]
+            return network(self._ingest(sbs_batch))
+        chunks = [network(self._ingest(c)) for c in sbs_batch.split(m)]
         return tuple(torch.cat(parts) if parts[0] is not None else None
                      for parts in zip(*chunks))
 
@@ -191,7 +228,7 @@ class StereoEngine(ServingLoop):
         bufs = [f.sbs_nv12 for f in frames]
         bufs += [bufs[-1]] * (self._bucket(len(bufs)) - len(bufs))
         first = bufs[0]
-        if isinstance(first, RingSlot) and all(
+        if self.mesh is None and isinstance(first, RingSlot) and all(
                 isinstance(b, RingSlot) and b.ring is first.ring for b in bufs):
             return first.ring, [b.slot for b in bufs]
         return np.stack([np.asarray(b) for b in bufs])
@@ -227,9 +264,10 @@ class StereoEngine(ServingLoop):
         unless ``record`` is False).
         """
         fetch = self._fetch_results
+        timed = self.cfg.engine.stage_timing and self.mesh is None
         if self._stream is None:
             dev = self._to_device(batch)
-            if self.cfg.engine.stage_timing:
+            if timed:
                 outs = self._timed_stages(dev, record)
             else:
                 outs = self.pipeline(dev)
@@ -238,7 +276,7 @@ class StereoEngine(ServingLoop):
             return outs, None
         with torch.cuda.stream(self._stream):
             dev = self._to_device(batch)
-            if self.cfg.engine.stage_timing:
+            if timed:
                 outs = self._timed_stages(dev, record)
             else:
                 outs = self.pipeline(dev)
@@ -319,3 +357,149 @@ class StereoEngine(ServingLoop):
 
     def _submit(self, frames: list):
         return self._launch(self._assemble_batch(frames))
+
+    # ------------------------------------------------------------------
+    # Mesh serving
+    # ------------------------------------------------------------------
+
+    def _init_mesh(self, mesh) -> None:
+        cfg = self.cfg
+        mc = mesh_mod.mesh_config(mesh)
+        if mc.num_devices != mesh_mod.world_size():
+            raise ValueError(f"the mesh {mc.data}x{mc.tile} must span every rank of the "
+                             f"process group ({mesh_mod.world_size()})")
+        self._ndata = mc.data
+        # Batch buckets must split evenly over the data axis; padding to
+        # the bucket covers partial batches.
+        self._buckets = tuple(b for b in self._buckets if b % mc.data == 0)
+        if not self._buckets:
+            raise ValueError(f"no batch bucket divisible by mesh data={mc.data}; "
+                             f"set EngineConfig.batch_buckets accordingly")
+        self._max_batch = min(self._max_batch, self._buckets[-1])
+        m = cfg.engine.device_microbatch
+        if m and m % mc.data:
+            raise ValueError(f"device_microbatch={m} must be a multiple of the mesh data axis "
+                             f"({mc.data}) so that each chunk splits evenly; use "
+                             f"m={mc.data * max(1, m // mc.data)} or disable")
+        self._local_microbatch = m // mc.data
+        self.rank = torch.distributed.get_rank()
+        self._root = int(mesh.mesh.flatten()[0])
+        self._tiles = None
+        if mc.tile > 1:
+            self._tiles = tiling.RowTiles(cfg.camera.height, cfg.model.cost_resolution_divisor,
+                                          mesh.get_group(mesh_mod.TILE_AXIS))
+        self._comm = torch.device("cuda", torch.cuda.current_device()) \
+            if mesh_mod.device_type() == "cuda" else torch.device("cpu")
+        self._closed = False
+        self._order_cache = {}
+        mesh_mod.replicate(mesh, self.model)
+
+    @property
+    def is_root(self) -> bool:
+        """Whether this rank feeds and polls (always, off a mesh)."""
+        return self.mesh is None or self.rank == self._root
+
+    def _order(self, bucket: int) -> list:
+        """Frame indices in the order the data ranks take them: rank d the
+        d-th slice of each microbatch chunk (of the whole batch without)."""
+        m = self.cfg.engine.device_microbatch
+        chunk = m if (m and bucket > m and bucket % m == 0) else bucket
+        per = chunk // self._ndata
+        return [c * chunk + d * per + i for d in range(self._ndata)
+                for c in range(bucket // chunk) for i in range(per)]
+
+    def _header(self, kind: int = _RUN, bucket: int = 0) -> torch.Tensor:
+        """Broadcast rank 0's header; the received one elsewhere.  Rank 0
+        never waits for the device here: the header goes up from pinned
+        memory on the stream, so dispatches keep overlapping."""
+        h = torch.tensor([kind, bucket], dtype=torch.int64)
+        if self._comm.type == "cuda":
+            h = h.pin_memory().to(self._comm, non_blocking=True)
+        torch.distributed.broadcast(h, src=self._root)
+        return h
+
+    def _order_index(self, bucket: int, device: torch.device) -> torch.Tensor:
+        """:meth:`_order` as an index tensor on ``device``, made once per bucket."""
+        key = (bucket, device)
+        if key not in self._order_cache:
+            self._order_cache[key] = torch.tensor(self._order(bucket), device=device)
+        return self._order_cache[key]
+
+    def _mesh_pipeline(self, sbs_batch: torch.Tensor):
+        """Rank 0's side of one dispatch over the mesh (module docstring)."""
+        if not self.is_root:
+            raise RuntimeError(f"rank {self.rank} serves through serve(); rank "
+                               f"{self._root} dispatches")
+        if self._closed:
+            raise RuntimeError("the mesh engine is closed")
+        bucket = sbs_batch.shape[0]
+        if bucket % self._ndata:
+            raise ValueError(f"a batch of {bucket} does not split over data={self._ndata}")
+        self._header(_RUN, bucket)
+        frames = sbs_batch.to(self._comm)
+        if self._ndata > 1:                    # one data rank: the order is the batch's
+            frames = frames.index_select(0, self._order_index(bucket, self._comm))
+        outs = self._serve_batch(list(frames.chunk(self._ndata)), bucket)
+        if self._ndata > 1:
+            outs = [None if o is None else torch.empty_like(o).index_copy_(
+                0, self._order_index(bucket, o.device), o) for o in outs]
+        disp, depth, conf = outs
+        return disp, depth, conf, nonfinite_flags(disp)
+
+    @torch.inference_mode()
+    def _serve_batch(self, chunks, bucket: int):
+        """Every rank's part of a dispatch: the scatter of the frames, the
+        local pipeline, the gather of the maps (rank 0 gets them, in the
+        scattered order)."""
+        mc = mesh_mod.mesh_config(self.mesh)
+        local = torch.empty((bucket // self._ndata, self._expected_len), dtype=torch.uint8,
+                            device=self._comm)
+        scatter = None
+        if chunks is not None:                 # rank r = (d, t) takes data slice d
+            scatter = [chunks[r // mc.tile].contiguous() for r in range(mc.num_devices)]
+        torch.distributed.scatter(local, scatter, src=self._root)
+        outs = self._chunked(local.to(self.device), self._local_microbatch, self._tile_maps)
+        gathered = []
+        for o in outs:
+            if o is None:
+                gathered.append(None)
+                continue
+            counts = self._tiles.layout(o.shape[1])[1] if self._tiles else [o.shape[1]]
+            gathered.append(mesh_mod.gather_maps(self.mesh, o, counts=counts))
+        return gathered
+
+    def _tile_maps(self, x: torch.Tensor):
+        """:meth:`_maps` of this rank's rows (all of them at ``tile = 1``);
+        rank 0 computes the flags from the gathered maps."""
+        if self._tiles is None:
+            return self._maps(x)
+        x = x[:, self._tiles.full_rows()].contiguous()
+        with tiling.row_tiles(self._tiles):
+            return self._maps(x)
+
+    def serve(self) -> int:
+        """A rank other than rank 0: serve rank 0's dispatches until it calls
+        :meth:`close`; returns the dispatches served."""
+        if self.mesh is None or self.is_root:
+            raise RuntimeError("serve() runs on the mesh's other ranks")
+        served = 0
+        while True:
+            kind, bucket = self._header().tolist()
+            if kind == _STOP:
+                return served
+            self._serve_batch(None, bucket)
+            served += 1
+
+    def start(self, warmup: bool = True):
+        if not self.is_root:
+            raise RuntimeError(f"rank {self.rank} serves through serve(); rank {self._root} "
+                               "feeds the mesh engine")
+        return super().start(warmup)
+
+    def close(self) -> None:
+        """Stop the workers; on a mesh, also end the other ranks' :meth:`serve`
+        (rank 0, once)."""
+        self.stop()
+        if self.mesh is not None and self.is_root and not self._closed:
+            self._header(_STOP)
+            self._closed = True

@@ -17,7 +17,9 @@ follows optax:
 The optimizer updates the parameters and its moments in place (JAX returns
 new arrays), with ``torch._foreach_*`` operations: a few launches a step
 for all the tensors.  The sharded step (the reference's
-``make_sharded_train_step``) is not ported yet.
+``make_sharded_train_step``, data and tile) comes next, over the serving
+mesh of ``parallel/``: it needs the halo exchange's backward and a
+cross-tile GroupNorm backward.
 """
 
 from __future__ import annotations

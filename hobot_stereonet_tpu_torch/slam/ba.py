@@ -11,8 +11,9 @@ The problem is laid out in fixed-shape dense blocks:
   * the Schur complement ``S = Hpp - Hpl Hll^-1 Hlp`` by ``einsum``;
   * the landmarks' back-substitution batched over M.
 
-The landmark-sharded variant (``make_distributed_bundle_adjust``) is not
-ported yet.
+``make_distributed_bundle_adjust`` shards the landmarks over the mesh's
+``data`` ranks: each builds its partial Schur complement, and all-reduces
+(sums) over the ``data`` group stand in for the JAX package's ``psum``s.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..config import CameraConfig
+from ..parallel.collectives import all_gather_cat, all_sum, data_group
 from . import se3
 from .odometry import _huber_weight, _projection_jacobian
 
@@ -72,8 +74,9 @@ def _build_normal_blocks(r, Jp, Jl, w, damping: float):
     return Hpp, Hll, Hpl, gp, gl
 
 
-def _schur_solve(Hpp, Hll, Hpl, gp, gl, gauge_fix_first: bool = True):
-    """Solve the reduced camera system and back-substitute the landmarks."""
+def _reduced_system(Hpp, Hll, Hpl, gp, gl):
+    """The reduced camera system S [N,N,6,6], b [N,6] (the landmarks
+    eliminated), and Hll^-1 for the back-substitution."""
     n = Hpp.shape[0]
     Hll_inv = torch.linalg.inv(Hll)
     A = torch.einsum("nmkl,mlo->nmko", Hpl, Hll_inv)
@@ -81,6 +84,12 @@ def _schur_solve(Hpp, Hll, Hpl, gp, gl, gauge_fix_first: bool = True):
     ar = torch.arange(n, device=Hpp.device)
     S[ar, ar] += Hpp
     b = gp - torch.einsum("nmko,mo->nk", A, gl)
+    return S, b, Hll_inv
+
+
+def _solve_reduced(S, b, Hpl, Hll_inv, gl, gauge_fix_first: bool = True):
+    """Solve the reduced camera system and back-substitute the landmarks."""
+    n = S.shape[0]
     S_flat = S.transpose(1, 2).reshape(6 * n, 6 * n)
     if gauge_fix_first:
         # Hold pose 0 by a stiff prior instead of resizing the system.
@@ -100,18 +109,60 @@ class BAResult(NamedTuple):
 
 @se3.f32_matmuls
 def bundle_adjust(problem: BAProblem, camera: CameraConfig, iters: int = 10,
-                  huber_px: float = 3.0, damping: float = 1e-3) -> BAResult:
-    """Single-device dense-block BA, a fixed number of iterations."""
+                  huber_px: float = 3.0, damping: float = 1e-3, group=None) -> BAResult:
+    """Dense-block BA, a fixed number of iterations.  ``group``: None on one
+    device; else a process group whose ranks each hold a slice of the
+    landmarks (and their observation columns) in ``problem``, the same poses
+    everywhere: the reduced camera system and the cost are summed over it
+    (the absolute pose damping, added on every rank, kept once), and the
+    result holds this rank's landmarks."""
     R, t = problem.poses
     lm = problem.landmarks
+    shards = 1 if group is None else torch.distributed.get_world_size(group)
+    eye6 = torch.eye(6, dtype=R.dtype, device=R.device)
     costs = []
     for _ in range(iters):
         r, Jp, Jl, w = _residuals_and_jacobians(R, t, lm, problem.obs, problem.valid,
                                                 camera, huber_px)
-        costs.append(torch.sum(w * torch.sum(r * r, dim=-1)))
+        cost = torch.sum(w * torch.sum(r * r, dim=-1))
         Hpp, Hll, Hpl, gp, gl = _build_normal_blocks(r, Jp, Jl, w, damping)
-        dx_p, dx_l = _schur_solve(Hpp, Hll, Hpl, gp, gl)
+        if shards > 1:
+            Hpp = Hpp - damping * eye6 * (1.0 - 1.0 / shards)
+        S, b, Hll_inv = _reduced_system(Hpp, Hll, Hpl, gp, gl)
+        if group is not None:
+            S, b, cost = all_sum([S, b, cost], group)
+        costs.append(cost)
+        dx_p, dx_l = _solve_reduced(S, b, Hpl, Hll_inv, gl)
         dR, dt = se3.exp_se3(dx_p)
         R, t = se3.compose(dR, dt, R, t)
         lm = lm + dx_l
     return BAResult(R=R, t=t, landmarks=lm, cost_history=torch.stack(costs))
+
+
+def make_distributed_bundle_adjust(mesh, camera: CameraConfig, iters: int = 10,
+                                   huber_px: float = 3.0, damping: float = 1e-3):
+    """Landmark-sharded BA over the mesh's ``data`` ranks (every rank of the
+    group calls the returned function on the same problem).
+
+    Data rank d takes the d-th equal slice of the landmarks and their
+    observation columns, and runs :func:`bundle_adjust` over the ``data``
+    group: its partial Schur complement, summed over the group, forms the
+    global reduced camera system, and the pose solve ([6N, 6N]) runs on
+    every rank alike; the landmarks' back-substitution stays on its rank,
+    and the result gathers them.  M must divide by the ``data`` size
+    (``ValueError``)."""
+    group = data_group(mesh)
+
+    def run(problem: BAProblem) -> BAResult:
+        shards = torch.distributed.get_world_size(group)
+        m = problem.landmarks.shape[0]
+        if m % shards:
+            raise ValueError(f"{m} landmarks do not split over data={shards}")
+        per, d = m // shards, torch.distributed.get_rank(group)
+        cols = slice(d * per, (d + 1) * per)
+        local = BAProblem(problem.poses, problem.landmarks[cols], problem.obs[:, cols],
+                          problem.valid[:, cols])
+        res = bundle_adjust(local, camera, iters, huber_px, damping, group=group)
+        return res._replace(landmarks=all_gather_cat(res.landmarks, group))
+
+    return run

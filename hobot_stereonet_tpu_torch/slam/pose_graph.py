@@ -12,7 +12,9 @@
   * loop-closure candidates scored by one batched descriptor product over
     all past keyframes, verified geometrically by the RANSAC PnP.
 
-The edge-sharded variant (``make_distributed_pose_graph``) is not ported yet.
+``make_distributed_pose_graph`` shards the edges over the mesh's ``data``
+ranks; all-reduces (sums) of H, g and the cost over the ``data`` group stand
+in for the JAX package's ``psum``s.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..parallel.collectives import all_sum, data_group
 from . import se3
 
 
@@ -78,9 +81,12 @@ def _gn_system(R, t, graph: PoseGraph):
 
 
 @se3.f32_matmuls
-def optimize_pose_graph(graph: PoseGraph, iters: int = 20,
-                        damping: float = 1e-6) -> PoseGraphResult:
-    """Damped Gauss-Newton over the whole graph; pose 0 held by a prior."""
+def optimize_pose_graph(graph: PoseGraph, iters: int = 20, damping: float = 1e-6,
+                        group=None) -> PoseGraphResult:
+    """Damped Gauss-Newton over the whole graph; pose 0 held by a prior.
+    ``group``: None on one device; else a process group whose ranks each
+    hold a slice of the edges in ``graph``, the same poses everywhere: H, g
+    and the cost are summed over it, and the solve runs on every rank alike."""
     n = graph.R.shape[0]
     gauge = torch.zeros(6 * n, device=graph.R.device)
     gauge[:6] = 1e8
@@ -89,11 +95,36 @@ def optimize_pose_graph(graph: PoseGraph, iters: int = 20,
     costs = []
     for _ in range(iters):
         H, g, cost = _gn_system(R, t, graph)
+        if group is not None:
+            H, g, cost = all_sum([H, g, cost], group)
         dx = -torch.linalg.solve(H + reg, g[:, None]).reshape(n, 6)
         dR, dt = se3.exp_se3(dx)
         R, t = se3.compose(dR, dt, R, t)
         costs.append(cost)
     return PoseGraphResult(R=R, t=t, cost_history=torch.stack(costs))
+
+
+def make_distributed_pose_graph(mesh, iters: int = 20, damping: float = 1e-6):
+    """Edge-sharded pose-graph Gauss-Newton over the mesh's ``data`` ranks
+    (every rank of the group calls the returned function on the same graph).
+
+    Data rank d takes the d-th equal slice of the edges and runs
+    :func:`optimize_pose_graph` over the ``data`` group: its (J^T W J, J^T W
+    r, cost), summed over the group, form the global normal equations.  E
+    must divide by the ``data`` size (pad with ``valid=False`` edges at pose
+    0; ``ValueError`` otherwise)."""
+    group = data_group(mesh)
+
+    def run(graph: PoseGraph) -> PoseGraphResult:
+        shards = torch.distributed.get_world_size(group)
+        e = graph.edge_i.shape[0]
+        if e % shards:
+            raise ValueError(f"{e} edges do not split over data={shards}")
+        per, d = e // shards, torch.distributed.get_rank(group)
+        local = PoseGraph(graph.R, graph.t, *(a[d * per:(d + 1) * per] for a in graph[2:]))
+        return optimize_pose_graph(local, iters, damping, group=group)
+
+    return run
 
 
 # ---------------------------------------------------------------------------

@@ -140,8 +140,12 @@ def test_upsample_and_downsample(rng, hw):
     got = tup.upsample_bilinear(torch.from_numpy(x), h, w)
     np.testing.assert_allclose(got.numpy(), np.asarray(jup.upsample_bilinear(jnp.asarray(x), h, w)),
                                rtol=1e-6, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="power-of-two"):
-        tup.upsample_bilinear(torch.from_numpy(x), 3 * hw[0], 3 * hw[1])
+    # Other factors follow jax.image.resize (ROADMAP A6; more factors in
+    # tests/test_torch_parallel.py).
+    got = tup.upsample_bilinear(torch.from_numpy(x), 3 * hw[0], 3 * hw[1])
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(jup.upsample_bilinear(jnp.asarray(x), 3 * hw[0], 3 * hw[1])),
+        rtol=1e-6, atol=1e-6)
 
 
 def test_upsample2x_matches_jax_image_resize(rng):

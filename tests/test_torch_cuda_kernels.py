@@ -1013,3 +1013,83 @@ def test_classic_int8_on_the_card_takes_both_routes(device):
     torch.cuda.synchronize()
     assert build.launch_counts["int8_conv"] > n0 and int8_gemm.calls["cuda"] > c0
     assert torch.isfinite(whole).all() and torch.equal(whole[1:2], alone)
+
+
+@pytest.mark.parametrize("sequential", [False, True])
+@pytest.mark.parametrize("n,c,spatial,dtype,bias_dtype,skip,activate", FUSED_CASES)
+def test_group_norm_split_entries_equal_the_fused_launch(device, sequential, n, c, spatial,
+                                                         dtype, bias_dtype, skip, activate):
+    """``group_norm_stats`` (the kernel in mode STATS), the statistics
+    finished as the kernel's phase 5, then ``group_norm_apply`` (mode APPLY)
+    over the whole tensor: the fused launch's output, mean and rstd bit for
+    bit, by the scan and by the walk in order; each entry counts one launch
+    under its own name; the sums equal the plain version's."""
+    from hobot_stereonet_tpu_torch.ops.kernels import group_norm as kg
+
+    x, g, w, b, cb, sk = _fused_case(n, c, spatial, dtype, bias_dtype, skip)
+    xd, wd, bd = x.to(device), w.to(device), b.to(device)
+    cbd = None if cb is None else cb.to(device)
+    skd = None if sk is None else sk.to(device)
+    want = kg._launch(xd, g, wd, bd, 1e-6, cbd, skd, activate, sequential=sequential)[:3]
+    before = dict(build.launch_counts)
+    sums = kg._launch(xd, g, wd, bd, 1e-6, cbd, None, False, sequential=sequential,
+                      mode=kg.STATS)[0]
+    count = c // g * int(np.prod(spatial))
+    mean, rstd = kg.statistics_from_sums(sums, count, 1e-6)
+    with torch.inference_mode():
+        out = kg.group_norm_apply(xd, wd, bd, mean, rstd, conv_bias=cbd, skip=skd,
+                                  activate=activate)
+    torch.cuda.synchronize()
+    assert build.launch_counts["group_norm_stats"] == before.get("group_norm_stats", 0) + 1
+    assert build.launch_counts["group_norm_apply"] == before.get("group_norm_apply", 0) + 1
+    assert out.stride() == x.stride()
+    for t, u in zip((out, mean, rstd), want):
+        assert torch.equal(t, u), float((t != u).float().mean())
+    a = x if cb is None else x + cb.to(dtype).view((1, -1) + (1,) * len(spatial))
+    assert torch.equal(sums.cpu(), kg.group_sums_plain(a, g))
+    with torch.inference_mode():
+        assert torch.equal(kg.group_norm_stats(xd, g, cbd), sums)
+
+
+@pytest.mark.parametrize("n,c,spatial,dtype", [(2, 32, (90, 160), torch.bfloat16),
+                                               (2, 32, (4, 18, 34), torch.bfloat16),
+                                               (2, 12, (720, 1280), torch.bfloat16),
+                                               (3, 12, (31, 33), torch.float32)])
+def test_group_norm_split_entries_over_row_halves(device, n, c, spatial, dtype):
+    """Two row halves' sums on the card: the plain version's halves' bits
+    (every chain is the one-thread chain).  Combined in float64 in order,
+    their statistics lie within 8 sqrt(n) float32 ulps of the scale (the
+    values' RMS for the mean, rstd for rstd; n elements a group) of the
+    whole tensor's: each side is a float32 chain off the exact value by
+    about sqrt(n) ulps (measured at 720x1280, n = 921600: 1.1e-4 and 5.7e-5
+    relative, the bound 4.6e-4); each half's output from them equals the
+    plain version's from the same statistics, bit for bit."""
+    from hobot_stereonet_tpu_torch.ops.kernels import group_norm as kg
+
+    x, g, w, b, cb, sk = _fused_case(n, c, spatial, dtype, torch.float32, True)
+    fmt = torch.channels_last_3d if len(spatial) == 3 else torch.channels_last
+    dim = x.dim() - 2
+    rows = x.shape[dim] // 2
+    cut = [(0, rows), (rows, x.shape[dim] - rows)]
+    halves = [x.narrow(dim, a, m).contiguous(memory_format=fmt) for a, m in cut]
+    skips = [sk.narrow(dim, a, m).contiguous(memory_format=fmt) for a, m in cut]
+    wd, bd, cbd = w.to(device), b.to(device), cb.to(device)
+    with torch.inference_mode():
+        parts = [kg.group_norm_stats(h.to(device), g, cbd) for h in halves]
+        for p, h in zip(parts, halves):
+            assert torch.equal(p.cpu(), kg.group_norm_stats(h, g, cb))
+        count = c // g * int(np.prod(spatial))
+        mean, rstd = kg.statistics_from_sums(kg.combine_sums(parts), count, 1e-6)
+        whole = kg.group_norm_fused_plain(x, g, w, b, 1e-6, cb, sk, True)
+        a = (x + cb.to(dtype).view((1, -1) + (1,) * len(spatial))).double().reshape(n, g, -1)
+        ulps = 8 * count ** 0.5 * 2.0 ** -24
+        for got, chain, scale in ((mean.cpu(), whole[2], (a ** 2).mean(2).sqrt()),
+                                  (rstd.cpu(), whole[3], whole[3].double())):
+            d = (got.double() - chain.double()).abs()
+            assert bool((d <= ulps * scale).all()), float((d / scale).max())
+        for h, s_, cpu_h, cpu_s in zip(halves, skips, halves, skips):
+            got = kg.group_norm_apply(h.to(device), wd, bd, mean, rstd, conv_bias=cbd,
+                                      skip=s_.to(device), activate=True)
+            want = kg.group_norm_apply(cpu_h, w, b, mean.cpu(), rstd.cpu(), conv_bias=cb,
+                                       skip=cpu_s, activate=True)
+            assert torch.equal(got.cpu(), want), float((got.cpu() != want).float().mean())

@@ -194,10 +194,12 @@ def test_drain_waits_for_a_frame_between_queues(frames):
 
 
 def test_engine_refuses_what_it_does_not_serve():
-    """Mesh serving is refused; int8, static scales and the quantized input
-    are served (tests below and tests/test_torch_quant.py)."""
+    """A mesh larger than the process group is refused (one process without a
+    group holds one rank; mesh serving: tests/test_torch_mesh_engine.py);
+    int8, static scales and the quantized input are served (tests below and
+    tests/test_torch_quant.py)."""
     _, tcfg = _configs()
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(ValueError, match="mesh 2x1 needs 2 devices, have 1"):
         StereoEngine(dataclasses.replace(tcfg, mesh={"data": 2, "tile": 1}), device="cpu")
     assert StereoEngine(tcfg, int8=True, device="cpu").int8
     eng = StereoEngine(dataclasses.replace(

@@ -20,7 +20,8 @@ new = {"data.synthetic", "data.loader", "data.stream", "utils.profiling",
        "data.sceneflow", "data.kitti", "runtime.hostio", "viz.colormap", "viz.server",
        "utils.debug", "runtime.artifact", "slam.se3", "slam.features", "slam.odometry",
        "slam.ba", "slam.pose_graph", "slam.tracker", "slam.run", "data.euroc",
-       "data.kitti_odometry"}
+       "data.kitti_odometry", "parallel", "parallel.mesh", "parallel.distributed",
+       "parallel.halo", "parallel.tiling", "parallel.collectives", "runtime.scaling"}
 missing = {pkg.__name__ + "." + n for n in new} - set(names)
 assert not missing, missing
 assert not bad, bad
