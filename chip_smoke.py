@@ -192,8 +192,17 @@ Phases, each printed with its elapsed seconds:
      720p scene within the CPU tests' bf16 bounds of the one-card engines,
      launching the split entries (counted by tile shape: the kernels
      line's launches) and no fused GroupNorm, and the distributed BA
-     against one rank; both bf16 engines' frames/s in turns at batch 8 once
-     the ranks are done.
+     against one rank, then ``make_sharded_train_step`` of both networks on
+     a (2, 1) and a (1, 2) mesh, float32 and bf16, two steps each: the
+     first held to the stored JAX step (``reference.TRAIN_F32_*``,
+     ``bf16_grad_check``), the ranks' parameters, moments and metrics
+     bit-equal after each step, rank 0's launches counted (the kernels
+     line's ``sharded_step_launches``); meanwhile the flagship's sharded
+     step on the (1, 1) NCCL mesh equals ``make_train_step`` bit for bit
+     (loss, EPE, norm, every gradient, the updated parameters; float32 and
+     bf16; cuDNN deterministic) with the same launches; once the ranks are
+     done, the two steps in turns (steps/s, stream and device time) and
+     both bf16 engines' frames/s in turns at batch 8.
 
 Phases 5, 7, 8, 10, 11, 11b, 12 and 16 reset the kernels' launch counts just before they
 drive their path and fail if a kernel of it was not launched (the GroupNorm
@@ -268,6 +277,12 @@ SCALE_BATCH = 8
 SCALE_ROUNDS, SCALE_FRAMES = 2, 192
 TILE_PATH = ("nv12_ingest", "group_norm_stats", "group_norm_apply", "correlation", "soft_argmin",
              "soft_argmin_cost")
+# The sharded train step's kernels on the two ranks' meshes, and its steps a
+# round on the (1, 1) mesh, timed in turns with make_train_step.
+TILE_TRAIN_PATH = ("group_norm", "group_norm_stats", "group_norm_apply", "correlation",
+                   "correlation_bwd", "soft_argmin", "soft_argmin_bwd", "soft_argmin_cost",
+                   "soft_argmin_cost_bwd")
+SHARDED_STEPS = 10
 GN_BATCHES = (1, 8, 32)         # batches of the GroupNorm phase
 # Backward kernels: (B, h, w) at the serving shapes and the training one
 # (crops of 128x256 at 1/8).
@@ -2708,6 +2723,131 @@ def split_group_norm_rows(cases, plain, flush, card, tile_calls: dict) -> list:
     return rows
 
 
+def sharded_step_phase(dev, mesh, card) -> dict:
+    """The flagship's ``make_sharded_train_step`` on the (1, 1) NCCL ``mesh``
+    against ``make_train_step`` from the same committed weights on the stored
+    batch (4 crops of 128x256), float32 and bf16: the loss, EPE, gradient
+    norm, every gradient and the updated parameters bit for bit, with the
+    same launches, under cuDNN's deterministic algorithms (its default ones
+    may sum a weight gradient in another order from run to run).  Returns a
+    summary by precision, with both runs for :func:`sharded_step_timing`."""
+    import torch
+
+    from hobot_stereonet_tpu_torch import reference
+    from hobot_stereonet_tpu_torch.config import StereoNetConfig
+    from hobot_stereonet_tpu_torch.models import build_model
+    from hobot_stereonet_tpu_torch.ops.kernels import build
+    from hobot_stereonet_tpu_torch.parallel.mesh import replicate, shard_batch
+    from hobot_stereonet_tpu_torch.runtime import training
+    from hobot_stereonet_tpu_torch.runtime.train_loop import to_model_input
+    from hobot_stereonet_tpu_torch.runtime.weights import from_flax_params
+
+    stored = reference.load_train_step("fast")
+    cs = str(stored["color_space"])
+    batch = [to_model_input(torch.from_numpy(stored[k]).to(dev), cs)
+             for k in ("left_u8", "right_u8")] + [torch.from_numpy(stored["disparity"]).to(dev)]
+    flax = reference.load_params(reference.PARAMS_NPZ)
+    summary = {}
+    shipped = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = StereoNetConfig(compute_dtype=dtype)
+        runs = {}
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        for kind in ("make_train_step", "sharded"):
+            net = build_model("fast", cfg, dev)
+            net.load_state_dict(from_flax_params(flax, cfg, "fast"))
+            opt = training.make_optimizer()
+            params = dict(net.named_parameters())
+            if kind == "sharded":
+                replicate(mesh, params)
+                step = training.make_sharded_train_step(net, opt, mesh, cfg.max_disparity)
+                inputs = [shard_batch(mesh, t, factor=cfg.cost_resolution_divisor)
+                          for t in batch]
+            else:
+                step = training.make_train_step(net, opt, cfg.max_disparity)
+                inputs = batch
+            state = training.TrainState(params, opt.init(params), 0)
+            torch.cuda.synchronize()
+            build.reset_launch_counts()
+            state, m = step(state, *inputs)
+            torch.cuda.synchronize()
+            runs[kind] = dict(
+                step=step, state=state, inputs=inputs, metrics=m,
+                launches=dict(build.launch_counts),
+                grads={k: p.grad.clone() for k, p in params.items()},
+                params={k: p.detach().clone() for k, p in params.items()})
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = shipped
+        a, b = runs["make_train_step"], runs["sharded"]
+        name = str(dtype).removeprefix("torch.")
+        diff = [k for k in ("loss", "epe", "grad_norm")
+                if not torch.equal(a["metrics"][k], b["metrics"][k])]
+        diff += [f"grad {k}" for k in a["grads"] if not torch.equal(a["grads"][k], b["grads"][k])]
+        diff += [f"param {k}" for k in a["params"]
+                 if not torch.equal(a["params"][k], b["params"][k])]
+        n_grads = len(a["grads"])
+        for run in runs.values():
+            del run["grads"], run["params"]
+        if diff or a["launches"] != b["launches"] or any(
+                b["launches"].get(k, 0) <= 0 for k in TRAIN_PATH):
+            raise AssertionError(f"(1, 1) mesh sharded step, flagship {name}: differs from "
+                                 f"make_train_step in {diff[:8]} ({len(diff)}); launches "
+                                 f"{b['launches']}, make_train_step's {a['launches']}")
+        summary[name] = {"loss": float(b["metrics"]["loss"]),
+                         "grad_norm": float(b["metrics"]["grad_norm"]),
+                         "launches": b["launches"], "runs": runs}
+        phase(f"scale-out: (1, 1) NCCL mesh sharded train step, flagship {name}, stored batch "
+              f"4x128x256: loss, EPE, gradient norm, all {n_grads} gradients and the "
+              f"updated parameters equal make_train_step's bit for bit (cuDNN deterministic), "
+              f"launches {b['launches']} (the same)")
+    return summary
+
+
+def sharded_step_timing(summary: dict, card: str, log: Path) -> None:
+    """Both steps of :func:`sharded_step_phase` in turns, the card otherwise
+    idle: steps/s on the host's clock and the median time a step between
+    CUDA events on the stream (the runs' states go on from their checks);
+    then one profiled step of each: its device time (the kernels' and
+    copies' sum) and the device-busy share of the traced window."""
+    import torch
+
+    from hobot_stereonet_tpu_torch.utils.profiling import device_trace
+
+    def timed(run) -> tuple:
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(2 * SHARDED_STEPS)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(SHARDED_STEPS):
+            events[2 * i].record()
+            run["state"], m = run["step"](run["state"], *run["inputs"])
+            events[2 * i + 1].record()
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ms = [events[2 * i].elapsed_time(events[2 * i + 1]) for i in range(SHARDED_STEPS)]
+        return SHARDED_STEPS / wall, statistics.median(ms)
+
+    for name, res in summary.items():
+        runs = res.pop("runs")
+        turns = {"make_train_step": [], "sharded": []}
+        for kind in ("make_train_step", "sharded", "sharded", "make_train_step"):
+            turns[kind].append(timed(runs[kind]))
+        res["steps_per_s"] = {k: [round(r, 3) for r, _ in v] for k, v in turns.items()}
+        res["stream_ms"] = {k: [round(t, 4) for _, t in v] for k, v in turns.items()}
+        res["device_ms"], res["busy"] = {}, {}
+        for kind, run in runs.items():
+            with device_trace(str(log / f"sharded_step_{kind}_{name}")) as prof:
+                run["state"], m = run["step"](run["state"], *run["inputs"])
+                float(m["loss"])
+            busy, total, _ = profile_summary(prof)
+            res["device_ms"][kind], res["busy"][kind] = round(total, 4), round(busy, 4)
+        phase(f"scale-out: (1, 1) mesh sharded train step against make_train_step, flagship "
+              f"{name}, in turns (make_train_step, sharded x2, make_train_step; "
+              f"{SHARDED_STEPS} steps a round, the card otherwise idle): steps/s "
+              f"{res['steps_per_s']}, median ms a step between CUDA events on the stream "
+              f"{res['stream_ms']}; one profiled step each: device time {res['device_ms']} ms, "
+              f"device busy {res['busy']} of the traced window; {card}")
+
+
 def scale_out_phase(ctx: dict) -> tuple:
     """Phase 16: scale-out on one card.  Two gloo ranks on cuda:0 (started
     first, in processes of their own): tile = 2 engines of both networks,
@@ -2791,6 +2931,10 @@ def scale_out_phase(ctx: dict) -> tuple:
         else:
             meshed.close()
     t = time.monotonic()
+    sharded = sharded_step_phase(dev, mesh, card)
+    phase(f"scale-out: sharded train step on the (1, 1) mesh checked and timed "
+          f"({time.monotonic() - t:.1f} s)")
+    t = time.monotonic()
     cases = split_group_norm_cases(dev, ctx["census"])
     phase(f"scale-out: split GroupNorm checked at {len(cases)} shapes and their tiles "
           f"({time.monotonic() - t:.1f} s)")
@@ -2816,7 +2960,22 @@ def scale_out_phase(ctx: dict) -> tuple:
           f"(seconds through the host {two['dispatch_s']}), its GroupNorm calls by shape "
           f"{two['group_norm_by_shape']}; the distributed BA on a (2, 1) mesh against one rank "
           f"{two['ba']} ({two['ba_s']:.2f} s); ranks done in {two['seconds']:.1f} s")
+    train = two["train"]
+    missing = [k for k in TILE_TRAIN_PATH if train["launches"].get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"sharded train step on two ranks: kernels not launched {missing}; "
+                             f"{train['launches']}")
+    for name, run in train["runs"].items():
+        phase(f"scale-out: two gloo ranks, sharded train step {name}: step 1 against the stored "
+              f"JAX step {run['vs_jax']}; ranks' parameters, moments and metrics bit-equal "
+              f"after steps 1 and 2; seconds a step {run['step1_s']:.2f}, {run['step2_s']:.2f}; "
+              f"rank 0's launches in step 1 {run['launches']}")
+    phase(f"scale-out: two gloo ranks, sharded train steps done in {two['train_s']:.1f} s; rank "
+          f"0's launches in the first steps {train['launches']}, by the tile's coarse shape "
+          f"{train['by_shape']}, its GroupNorm calls by input shape "
+          f"{train['group_norm_by_shape']}")
     # Timings, the card otherwise idle.
+    sharded_step_timing(sharded, card, ctx["log"])
     rounds = fps_in_turns(engines, feed, SCALE_FRAMES, rounds=SCALE_ROUNDS)
     phase(f"scale-out: bf16 engines at batch {SCALE_BATCH}, host frames, in turns "
           f"({SCALE_ROUNDS} rounds of {SCALE_FRAMES}), frames/s: {rounds}; {card}")
@@ -2826,7 +2985,7 @@ def scale_out_phase(ctx: dict) -> tuple:
         eng.close()
     distributed.shutdown()
     phase(f"scale-out: done in {time.monotonic() - t0:.1f} s")
-    return rows, two["group_norm_by_shape"]
+    return rows, two["group_norm_by_shape"], dict(train, one_mesh=sharded)
 
 
 def main() -> int:
@@ -3237,7 +3396,7 @@ def main() -> int:
 
     # 13. the command line ---------------------------------------------------------
     ctx = dict(dev=dev, cfg=cfg, trained=trained, heldout=heldout, card=card, exports=exports,
-               census=census)
+               census=census, log=log)
     cli_phase(ctx)
 
     # 14. the compiled artifact ---------------------------------------------------------
@@ -3247,8 +3406,17 @@ def main() -> int:
     slam_phase(ctx)
 
     # 16. scale-out on one card -----------------------------------------------------------
-    scale_rows, tile_calls = scale_out_phase(ctx)
+    scale_rows, tile_calls, train = scale_out_phase(ctx)
     rows += scale_rows
+
+    def sharded_launches(r):
+        """Rank 0's launches on the two ranks' sharded train steps: the split
+        GroupNorm entries' by input shape (one each a call), the backward
+        kernels' by the tile's coarse shape."""
+        if r["name"] in ("group_norm_stats", "group_norm_apply"):
+            return train["group_norm_by_shape"]
+        return {k.split(" ", 1)[1]: c for k, c in train["by_shape"].items()
+                if k.split(" ", 1)[0] == r["name"]} or None
 
     def row_launches(r):
         if "key" in r:                            # a GroupNorm shape and form: its launches
@@ -3266,7 +3434,10 @@ def main() -> int:
         batch=r["batch"], launches=row_launches(r), max_abs_err=r["max_abs_err"], ms=r["ms"],
         plain_ms=r["plain_ms"], bound_ms=r["bound"][0], bound_by=r["bound"][1],
         library_ms=r["library_ms"],
-        **{k: r[k] for k in ("cudnn_bf16_ms", "unfused_ms", "other_mode_ms") if k in r})
+        **{k: r[k] for k in ("cudnn_bf16_ms", "unfused_ms", "other_mode_ms") if k in r},
+        **({"sharded_step_launches": sharded_launches(r)} if r["name"] in (
+            "group_norm_stats", "group_norm_apply", "correlation_bwd", "soft_argmin_bwd",
+            "soft_argmin_cost_bwd") else {}))
         for r in rows], "library": dict(
             name="int8_conv_im2col",
             route="library: im2col + torch._int_mm, then the int8_epilogue kernel (not a kernel)",

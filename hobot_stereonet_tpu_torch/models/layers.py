@@ -30,7 +30,7 @@ ranks of a tile group) a conv runs its call on its tile extended by the
 rows its taps reach and crops the output back to the tile, and a GroupNorm
 splits at its statistics: ``group_norm_stats`` over the tile's rows, the
 ranks' sums combined in rank order, then ``group_norm_apply`` with the
-same fusions.
+same fusions (``tiled_group_norm``, differentiable: the sharded train step).
 
 Weights are float32 master weights, as flax's ``param_dtype=float32``: a
 conv computes in its ``compute_dtype`` (set from the config by
@@ -42,15 +42,13 @@ bits.
 
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.kernels.group_norm import (group_norm_apply, group_norm_fused, group_norm_stats,
-                                      leaky_relu)
+from ..ops.kernels.group_norm import group_norm_fused, leaky_relu, tiled_group_norm
 from ..ops.kernels.int8_conv import same_pads
 from ..parallel import tiling
 
@@ -169,16 +167,12 @@ class GroupNorm(nn.GroupNorm):
 
     def _tiled(self, tiles, x, conv_bias, skip, activate):
         """The GroupNorm of a row tile: the statistics of the whole image from
-        every rank's sums, then this tile's output (inference only)."""
-        if torch.is_grad_enabled() and any(
-                t is not None and t.requires_grad for t in (x, self.weight, conv_bias, skip)):
-            raise NotImplementedError("GroupNorm on row tiles runs inference only; "
-                                      "the sharded train step (its backward) comes next")
-        sums = group_norm_stats(x, self.num_groups, conv_bias)
-        count = x.shape[1] // self.num_groups * math.prod(x.shape[2:])
-        mean, rstd = tiles.group_statistics(sums, count, self.eps)
-        return group_norm_apply(x, self.weight.float(), self.bias.float(), mean, rstd,
-                                conv_bias=conv_bias, skip=skip, activate=activate)
+        every rank's sums, then this tile's output; differentiable (the
+        backward sums its statistics' gradient terms over the tile group)."""
+        dt = torch.float64 if x.dtype == torch.float64 else torch.float32
+        return tiled_group_norm(x, self.num_groups, self.weight.to(dt), self.bias.to(dt),
+                                self.eps, tiles, conv_bias=conv_bias, skip=skip,
+                                activate=activate)
 
 
 class ConvBlock(nn.Module):

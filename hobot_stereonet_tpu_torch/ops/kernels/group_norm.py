@@ -34,7 +34,11 @@ conv's bias before and a residual add and LeakyReLU after, in the same
 launch on the card; :func:`group_norm` is its call with none of the three.
 Both are differentiable: the backward is ATen's
 ``native_group_norm_backward`` on the float32 input with the forward's
-statistics, the backward ``F.group_norm`` runs.
+statistics, the backward ``F.group_norm`` runs.  :func:`tiled_group_norm`
+is the GroupNorm of a row tile of an image split over ranks (the entries
+split at the statistics, :func:`group_norm_stats` and
+:func:`group_norm_apply`), with a backward that sums ATen's formula's terms
+over the ranks.
 """
 
 from __future__ import annotations
@@ -601,6 +605,15 @@ def group_norm_fused_plain(x: torch.Tensor, num_groups: int, weight: torch.Tenso
     return (leaky_relu(r) if activate else r), r, mean, rstd
 
 
+def _leaky_relu_backward(dout: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """The gradient through :func:`leaky_relu` at its input ``r``: ``dout``
+    where ``r >= 0``, else ``dout`` times the slope, in ``dout``'s dtype."""
+    mask = r >= 0
+    zero = torch.zeros((), dtype=dout.dtype, device=dout.device)
+    return (torch.where(mask, dout, zero)
+            + torch.where(mask, zero, dout) * torch.tensor(NEGATIVE_SLOPE, dtype=dout.dtype))
+
+
 class _GroupNormFused(torch.autograd.Function):
     """The fused entry; its backward is the unfused ops' autograd: the
     LeakyReLU's two branches at the forward's r, the residual add, ATen's
@@ -620,12 +633,7 @@ class _GroupNormFused(torch.autograd.Function):
     def backward(ctx, dout):
         x, weight, conv_bias, mean, rstd, r = ctx.saved_tensors
         need_x, need_w, need_b, need_cb, need_skip = ctx.needs_input_grad[:5]
-        d_r = dout
-        if ctx.activate:
-            mask = r >= 0
-            zero = torch.zeros((), dtype=dout.dtype, device=dout.device)
-            d_r = (torch.where(mask, dout, zero)
-                   + torch.where(mask, zero, dout) * torch.tensor(NEGATIVE_SLOPE, dtype=dout.dtype))
+        d_r = _leaky_relu_backward(dout, r) if ctx.activate else dout
         a = x if conv_bias is None else x + _channel_view(conv_bias.to(x.dtype), x)
         n, c = x.shape[:2]
         fmt = torch.contiguous_format
@@ -725,25 +733,33 @@ def group_norm_stats(x: torch.Tensor, num_groups: int,
 def group_norm_apply(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                      mean: torch.Tensor, rstd: torch.Tensor,
                      conv_bias: Optional[torch.Tensor] = None,
-                     skip: Optional[torch.Tensor] = None, activate: bool = False
-                     ) -> torch.Tensor:
+                     skip: Optional[torch.Tensor] = None, activate: bool = False,
+                     keep_r: bool = False):
     """:func:`group_norm_fused`'s output from given (mean, rstd) float32
     [N, G]: the kernel in mode APPLY for a CUDA tensor (one launch), the
     unfused ops for a CPU tensor.  :func:`group_norm_stats`, then
     :func:`statistics_from_sums`, then this over one whole tensor give
-    :func:`group_norm_fused`'s bits."""
-    return torch.ops.hst.group_norm_apply(x, weight, bias, mean, rstd, conv_bias, skip,
-                                          activate)
+    :func:`group_norm_fused`'s bits.  ``keep_r`` (with ``activate``):
+    returns (output, r), r the value before the activation, written by the
+    same launch."""
+    out, r = torch.ops.hst.group_norm_apply(x, weight, bias, mean, rstd, conv_bias, skip,
+                                            activate, keep_r and activate)
+    return (out, r) if keep_r else out
 
 
 def combine_sums(parts: "list[torch.Tensor]") -> torch.Tensor:
     """Ranks' group sums (each float32 [N, G, 2]) added in float64 in the
     order given (rank order), rounded once to float32: one part comes back
     as it is."""
+    return add_in_order(parts).float()
+
+
+def add_in_order(parts: "list[torch.Tensor]") -> torch.Tensor:
+    """``parts`` added in float64 in the order given (float64)."""
     total = parts[0].double()
     for part in parts[1:]:
         total = total + part.double()
-    return total.float()
+    return total
 
 
 def _with_bias(x: torch.Tensor, conv_bias: Optional[torch.Tensor]) -> torch.Tensor:
@@ -771,22 +787,124 @@ def _group_norm_stats_cuda(x, conv_bias, num_groups):
 def _group_norm_apply_op(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                          mean: torch.Tensor, rstd: torch.Tensor,
                          conv_bias: Optional[torch.Tensor], skip: Optional[torch.Tensor],
-                         activate: bool) -> torch.Tensor:
-    """``hst::group_norm_apply``: :func:`group_norm_apply`."""
+                         activate: bool, keep_r: bool
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``hst::group_norm_apply`` -> (out, r): :func:`group_norm_apply`; r only
+    with ``keep_r``, else an empty tensor."""
     _check(x, mean.shape[1], weight, bias)
     g = normalize_plain(_with_bias(x, conv_bias), weight, bias, mean, rstd)
     r = g if skip is None else skip + g
-    return leaky_relu(r) if activate else r
+    return (leaky_relu(r) if activate else r), (r if keep_r else x.new_empty(0))
 
 
 @_group_norm_apply_op.register_fake
-def _(x, weight, bias, mean, rstd, conv_bias, skip, activate):
+def _(x, weight, bias, mean, rstd, conv_bias, skip, activate, keep_r):
     fmt = _memory_format(x) if x.is_contiguous(memory_format=_memory_format(x)) \
         else torch.preserve_format
-    return torch.empty_like(x, memory_format=fmt)
+    out = torch.empty_like(x, memory_format=fmt)
+    return out, (torch.empty_like(out) if keep_r else x.new_empty(0))
 
 
 @_group_norm_apply_op.register_kernel("cuda")
-def _group_norm_apply_cuda(x, weight, bias, mean, rstd, conv_bias, skip, activate):
-    return _launch(x, mean.shape[1], weight, bias, 0.0, conv_bias, skip, activate,
-                   mode=APPLY, stats=(mean, rstd))[0]
+def _group_norm_apply_cuda(x, weight, bias, mean, rstd, conv_bias, skip, activate, keep_r):
+    out, _, _, r = _launch(x, mean.shape[1], weight, bias, 0.0, conv_bias, skip, activate,
+                           keep_r=keep_r, mode=APPLY, stats=(mean, rstd))
+    return out, (r if keep_r else x.new_empty(0))
+
+
+# ---------------------------------------------------------------------------
+# Row tiles across ranks: the whole image's statistics, with a backward
+# ---------------------------------------------------------------------------
+
+
+def tiled_group_norm(x: torch.Tensor, num_groups: int, weight: torch.Tensor,
+                     bias: torch.Tensor, eps: float, tiles,
+                     conv_bias: Optional[torch.Tensor] = None,
+                     skip: Optional[torch.Tensor] = None, activate: bool = False
+                     ) -> torch.Tensor:
+    """:func:`group_norm_fused` of this rank's row tile of an image split
+    over the ranks of ``tiles`` (a ``parallel.tiling.RowTiles``): the
+    statistics of the whole image, then this tile's output.  bf16 and
+    float32: :func:`group_norm_stats` over the tile's rows, every rank's
+    sums added in float64 in rank order (``tiles.group_statistics``), then
+    :func:`group_norm_apply`; float64 (``weight`` and ``bias`` too): the
+    same sums, statistics and output in float64 PyTorch.
+
+    Differentiable (:class:`_TiledGroupNorm`): ATen's
+    ``native_group_norm_backward`` with the whole image's sums.  The tile
+    forms each (sample, group)'s ``Σ dy·γ·a`` and ``Σ dy·γ`` (float32, or
+    float64 for float64 input), the tile group adds them in float64 in rank
+    order, and ``dx = γ·rstd·dy + c2·a + c3`` with the whole image's
+    element count; dγ, dβ and the conv bias's gradient are this tile's
+    sums (the train step adds them over the ranks)."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, weight, bias, conv_bias, skip)):
+        return _TiledGroupNorm.apply(x, weight, bias, conv_bias, skip, tiles, num_groups, eps,
+                                     activate)
+    return _tiled_forward(x, num_groups, weight, bias, eps, tiles, conv_bias, skip, activate,
+                          False)[0]
+
+
+def _tiled_forward(x, num_groups, weight, bias, eps, tiles, conv_bias, skip, activate, keep_r):
+    """-> (out, r or None, mean, rstd) of :func:`tiled_group_norm`."""
+    count = x.shape[1] // num_groups * math.prod(x.shape[2:])
+    if x.dtype != torch.float64:
+        mean, rstd = tiles.group_statistics(group_norm_stats(x, num_groups, conv_bias), count,
+                                            eps)
+        out = group_norm_apply(x, weight, bias, mean, rstd, conv_bias=conv_bias, skip=skip,
+                               activate=activate, keep_r=keep_r)
+        return (out if keep_r else (out, None)) + (mean, rstd)
+    a = _with_bias(x, conv_bias)
+    v = a.reshape(a.shape[0], num_groups, -1)
+    total = tiles.sum_in_rank_order(torch.stack([v.sum(-1), (v * v).sum(-1)], -1))
+    m = tiles.image_count(count)
+    mean = total[..., 0] / m
+    rstd = 1.0 / torch.sqrt((total[..., 1] / m - mean * mean).clamp_min(0.0) + eps)
+    y = ((v - mean[..., None]) * rstd[..., None]).view(a.shape)
+    r = y * _channel_view(weight, x) + _channel_view(bias, x)
+    r = r if skip is None else skip + r
+    return (leaky_relu(r) if activate else r), r, mean, rstd
+
+
+class _TiledGroupNorm(torch.autograd.Function):
+    """:func:`tiled_group_norm` with its backward (the docstring there); the
+    LeakyReLU, residual add and conv bias steps as :class:`_GroupNormFused`'s."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, conv_bias, skip, tiles, num_groups, eps, activate):
+        out, r, mean, rstd = _tiled_forward(x, num_groups, weight, bias, eps, tiles, conv_bias,
+                                            skip, activate, activate)
+        ctx.save_for_backward(x, weight, conv_bias, mean, rstd, r if activate else None)
+        ctx.tiles, ctx.num_groups, ctx.activate = tiles, num_groups, activate
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, weight, conv_bias, mean, rstd, r = ctx.saved_tensors
+        need_x, need_w, need_b, need_cb, need_skip = ctx.needs_input_grad[:5]
+        d_r = _leaky_relu_backward(dout, r) if ctx.activate else dout
+        acc = torch.float64 if x.dtype == torch.float64 else torch.float32
+        a, dy, w = _with_bias(x, conv_bias).to(acc), d_r.to(acc), weight.to(acc)
+        n, c = x.shape[:2]
+        g, d = ctx.num_groups, c // ctx.num_groups
+        dims = tuple(range(2, x.dim()))
+        ds, db = (dy * a).sum(dims), dy.sum(dims)                     # [N, C], this tile's
+        part = torch.stack([(ds * w).view(n, g, d).sum(2), (db * w).view(n, g, d).sum(2)], -1)
+        total = ctx.tiles.sum_in_rank_order(part).to(acc)              # the whole image's
+        ds_g, db_g = total[..., 0], total[..., 1]
+        mean, rstd = mean.to(acc), rstd.to(acc)
+        s = 1.0 / ctx.tiles.image_count(d * math.prod(x.shape[2:]))
+        c2 = (db_g * mean - ds_g) * rstd * rstd * rstd * s
+        c3 = -c2 * mean - db_g * rstd * s
+        mean_c, rstd_c = mean.repeat_interleave(d, 1), rstd.repeat_interleave(d, 1)
+        dx = dcb = None
+        if need_x or need_cb:
+            view = (n, c) + (1,) * len(dims)
+            dx = ((rstd_c * w).view(view) * dy + c2.repeat_interleave(d, 1).view(view) * a
+                  + c3.repeat_interleave(d, 1).view(view)).to(x.dtype)
+            if need_cb:
+                dcb = dx.sum((0,) + dims).to(conv_bias.dtype)
+        dw = ((ds - db * mean_c) * rstd_c).sum(0).to(weight.dtype) if need_w else None
+        dbeta = db.sum(0).to(weight.dtype) if need_b else None
+        return ((dx if need_x else None), dw, dbeta, dcb, (d_r if need_skip else None), None,
+                None, None, None)

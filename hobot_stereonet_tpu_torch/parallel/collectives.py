@@ -1,4 +1,4 @@
-"""Small collectives of the solvers that run over the mesh's ``data`` ranks.
+"""Small collectives over the mesh's groups (the solvers', the train step's).
 
 The JAX package reduces with ``psum`` inside ``shard_map``; here each is a
 ``torch.distributed`` call over the ``data`` group, staged through the host
@@ -41,3 +41,12 @@ def all_gather_cat(t: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor:
     parts = [torch.empty_like(staged) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, staged, group=group)
     return torch.cat(parts, dim).to(t.device)
+
+
+def sum_in_rank_order(t: torch.Tensor, group=None) -> torch.Tensor:
+    """``t`` summed over ``group``: every rank's gathered and added in float64
+    in rank order, so that every rank holds the same bits whatever the
+    arrival order (float64, on ``t``'s device)."""
+    from ..ops.kernels.group_norm import add_in_order
+
+    return add_in_order(list(all_gather_cat(t[None], group)))

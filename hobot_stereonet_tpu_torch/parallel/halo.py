@@ -9,7 +9,10 @@ rank works out which of its rows every other rank needs and sends them in
 one message, so a reach wider than a neighbour's rows takes rows from as
 many ranks as it spans (as GSPMD does), and tiles of unequal heights work.
 Rows beyond the image are zero (a "SAME" conv's padding) or the edge row
-repeated.  With one rank in the group there is no exchange.
+repeated.  With one rank in the group there is no exchange.  The exchange
+is differentiable: its backward sends each halo row's gradient back to the
+rank that owns the row (the sharded train step's backward through every
+layer that reads across rows).
 """
 
 from __future__ import annotations
@@ -45,7 +48,15 @@ def exchange_rows(x: torch.Tensor, starts: Sequence[int], counts: Sequence[int],
     what each asks for), from whichever ranks hold them; beyond the image
     zero (``edge="zero"``) or the edge row repeated (``"replicate"``).  Each
     pair of ranks exchanges one message each way at most, all in one
-    ``batch_isend_irecv``.  The result keeps ``x``'s memory format."""
+    ``batch_isend_irecv``.  The result keeps ``x``'s memory format.
+
+    Differentiable: the backward runs the exchange in reverse (one
+    ``batch_isend_irecv``).  This rank keeps the gradient of its own rows;
+    each halo row's gradient goes back to the rank that owns the row, which
+    adds the rows it receives, in sender-rank order, at the rows it sent (a
+    row that ``"replicate"`` repeated adds once for each time); the
+    gradient of a row beyond the image (``"zero"``) is dropped.  Every rank
+    of the group must run the backward, in the same order as the forwards."""
     if edge not in ("zero", "replicate"):
         raise ValueError(f"unknown edge {edge!r}")
     size = len(counts)
@@ -57,59 +68,138 @@ def exchange_rows(x: torch.Tensor, starts: Sequence[int], counts: Sequence[int],
     bottoms = list(bottom) if isinstance(bottom, Sequence) else [bottom] * size
     if x.shape[dim] != counts[me]:
         raise ValueError(f"rank {me} holds {x.shape[dim]} rows, the layout says {counts[me]}")
-    total = starts[-1] + counts[-1]
+    plan = _Plan(starts, counts, tops, bottoms, edge, me, list(peers), group, dim)
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _ExchangeRows.apply(x, plan)
+    return plan.forward(x)
 
-    def halo(t):                     # rank t's halo rows: (owner or None, row of the owner)
-        a, b = starts[t], starts[t] + counts[t]
-        out = []
-        for g in list(range(a - tops[t], a)) + list(range(b, b + bottoms[t])):
-            if edge == "replicate":
-                g = min(max(g, 0), total - 1)
-            elif g < 0 or g >= total:
-                out.append((None, 0))
-                continue
-            owner = bisect.bisect_right(starts, g) - 1
-            out.append((owner, g - starts[owner]))
-        return out
 
-    ops, recv, comm = [], {}, comm_device(x, group)
-    for t in range(size):
-        if t == me:
-            continue
-        mine = [r for owner, r in halo(t) if owner == me]
-        if mine:
-            idx = torch.tensor(mine, device=x.device)
-            ops.append(dist.P2POp(dist.isend, x.index_select(dim, idx).to(comm).contiguous(),
-                                  peers[t], group))
-    halo_me = halo(me)
-    for owner in sorted({o for o, _ in halo_me if o is not None and o != me}):
-        shape = list(x.shape)
-        shape[dim] = sum(1 for o, _ in halo_me if o == owner)
-        recv[owner] = torch.empty(shape, dtype=x.dtype, device=comm)
-        ops.append(dist.P2POp(dist.irecv, recv[owner], peers[owner], group))
-    if ops:
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
-    # One pool of rows: x's, each owner's message in rank order, a zero row.
-    zshape = list(x.shape)
-    zshape[dim] = 1
-    pool = [x] + [recv[o].to(x.device) for o in sorted(recv)] + [x.new_zeros(zshape)]
-    base, offset = {}, x.shape[dim]
-    for o in sorted(recv):
-        base[o], offset = offset, offset + recv[o].shape[dim]
-    zero, taken, index_rows = offset, dict.fromkeys(recv, 0), []
-    for owner, r in halo_me:
-        if owner is None:
-            index_rows.append(zero)
-        elif owner == me:
-            index_rows.append(r)
-        else:
-            index_rows.append(base[owner] + taken[owner])
-            taken[owner] += 1
-    n_top = tops[me]
-    index_rows = index_rows[:n_top] + list(range(x.shape[dim])) + index_rows[n_top:]
-    ext = torch.cat(pool, dim).index_select(dim, torch.tensor(index_rows, device=x.device))
-    return ext.contiguous(memory_format=memory_format(x))
+class _Plan:
+    """Who sends which rows to whom in one exchange (every rank's halo is
+    known to every rank from the layout)."""
+
+    def __init__(self, starts, counts, tops, bottoms, edge, me, peers, group, dim):
+        self.me, self.peers, self.group, self.dim = me, peers, group, dim
+        self.n_top, self.local = tops[me], counts[me]
+        total = starts[-1] + counts[-1]
+
+        def halo(t):                 # rank t's halo rows: (owner or None, row of the owner)
+            a, b = starts[t], starts[t] + counts[t]
+            out = []
+            for g in list(range(a - tops[t], a)) + list(range(b, b + bottoms[t])):
+                if edge == "replicate":
+                    g = min(max(g, 0), total - 1)
+                elif g < 0 or g >= total:
+                    out.append((None, 0))
+                    continue
+                owner = bisect.bisect_right(starts, g) - 1
+                out.append((owner, g - starts[owner]))
+            return out
+
+        # this rank's rows each other rank takes, in the order it takes them
+        self.send = {}
+        for t in range(len(counts)):
+            mine = [r for owner, r in halo(t) if owner == me] if t != me else []
+            if mine:
+                self.send[t] = mine
+        self.halo = halo(me)
+        # rows of this rank's halo (positions in the extended tensor) by owner
+        pos = list(range(self.n_top)) + [self.n_top + self.local + j
+                                         for j in range(len(self.halo) - self.n_top)]
+        self.pos = {}
+        for p, (owner, r) in zip(pos, self.halo):
+            if owner is not None:
+                self.pos.setdefault(owner, []).append((p, r))
+
+    def _exchange(self, outgoing: dict, incoming: dict, like: torch.Tensor) -> dict:
+        """One ``batch_isend_irecv``: ``outgoing`` {rank: tensor} sent,
+        ``incoming`` {rank: rows} received as tensors shaped like ``like``
+        with that many rows along ``dim``; returns {rank: received}."""
+        comm = comm_device(like, self.group)
+        ops, recv = [], {}
+        for t, msg in outgoing.items():
+            ops.append(dist.P2POp(dist.isend, msg.to(comm).contiguous(), self.peers[t],
+                                  self.group))
+        for t, rows in sorted(incoming.items()):
+            shape = list(like.shape)
+            shape[self.dim] = rows
+            recv[t] = torch.empty(shape, dtype=like.dtype, device=comm)
+            ops.append(dist.P2POp(dist.irecv, recv[t], self.peers[t], self.group))
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        return {t: m.to(like.device) for t, m in recv.items()}
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dim = self.dim
+        out = {t: x.index_select(dim, torch.tensor(rows, device=x.device))
+               for t, rows in self.send.items()}
+        recv = self._exchange(out, {o: len(v) for o, v in self.pos.items() if o != self.me}, x)
+        # One pool of rows: x's, each owner's message in rank order, a zero row.
+        zshape = list(x.shape)
+        zshape[dim] = 1
+        pool = [x] + [recv[o] for o in sorted(recv)] + [x.new_zeros(zshape)]
+        base, offset = {}, x.shape[dim]
+        for o in sorted(recv):
+            base[o], offset = offset, offset + recv[o].shape[dim]
+        zero, taken, index_rows = offset, dict.fromkeys(recv, 0), []
+        for owner, r in self.halo:
+            if owner is None:
+                index_rows.append(zero)
+            elif owner == self.me:
+                index_rows.append(r)
+            else:
+                index_rows.append(base[owner] + taken[owner])
+                taken[owner] += 1
+        index_rows = (index_rows[:self.n_top] + list(range(x.shape[dim]))
+                      + index_rows[self.n_top:])
+        ext = torch.cat(pool, dim).index_select(dim, torch.tensor(index_rows, device=x.device))
+        return ext.contiguous(memory_format=memory_format(x))
+
+    def backward(self, g: torch.Tensor, fmt) -> torch.Tensor:
+        dim = self.dim
+        out = {o: g.index_select(dim, torch.tensor([p for p, _ in v], device=g.device))
+               for o, v in sorted(self.pos.items()) if o != self.me}
+        recv = self._exchange(out, {t: len(rows) for t, rows in self.send.items()}, g)
+        grad = g.narrow(dim, self.n_top, self.local).clone(memory_format=fmt)
+        own = self.pos.get(self.me)    # this rank's edge rows that "replicate" repeated
+        if own:
+            recv[self.me] = g.index_select(dim, torch.tensor([p for p, _ in own],
+                                                             device=g.device))
+        for t in sorted(recv):
+            _add_rows(grad, dim, [r for _, r in own] if t == self.me else self.send[t], recv[t])
+        return grad
+
+
+def _add_rows(acc: torch.Tensor, dim: int, rows: Sequence[int], src: torch.Tensor) -> None:
+    """``acc``'s row ``rows[j]`` += ``src``'s row j along ``dim``, in order of
+    j: one ``index_add_`` for each repeat of a row, each over rows that
+    differ, so that no destination takes two additions at once."""
+    seen: dict = {}
+    passes: list = []
+    for j, r in enumerate(rows):
+        k = seen.get(r, 0)
+        seen[r] = k + 1
+        if k == len(passes):
+            passes.append(([], []))
+        passes[k][0].append(r)
+        passes[k][1].append(j)
+    for dst, sel in passes:
+        idx = torch.tensor(sel, device=src.device)
+        acc.index_add_(dim, torch.tensor(dst, device=acc.device), src.index_select(dim, idx))
+
+
+class _ExchangeRows(torch.autograd.Function):
+    """:func:`exchange_rows` with its backward (the exchange in reverse)."""
+
+    @staticmethod
+    def forward(ctx, x, plan):
+        ctx.plan, ctx.fmt = plan, memory_format(x)
+        return plan.forward(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.plan.backward(g, ctx.fmt), None
 
 
 def _tile_group(mesh):

@@ -103,8 +103,9 @@ def shard_batch(mesh, x: torch.Tensor, tile_rows: bool = True, factor: int = 1
 @torch.no_grad()
 def replicate(mesh, tree):
     """Every tensor of ``tree`` (a module's parameters and buffers, a dict or
-    list of tensors, or a tensor) overwritten in place with rank 0's, over
-    the mesh's ranks, so that every rank serves the same weights; returns
+    list of tensors, or a tensor) overwritten in place with the mesh's first
+    rank's, over the mesh's ranks (which may be fewer than the process
+    group's), so that every rank serves or trains the same weights; returns
     ``tree``."""
     if isinstance(tree, torch.nn.Module):
         tensors = list(tree.state_dict(keep_vars=True).values())
@@ -114,11 +115,14 @@ def replicate(mesh, tree):
         tensors = list(tree)
     else:
         tensors = [tree]
-    src = mesh.mesh.flatten()[0].item()
+    # from data rank 0 along each data group, then from tile rank 0 along
+    # each tile group: every rank then holds the mesh's first rank's bits
+    groups = [mesh.get_group(axis) for axis in (DATA_AXIS, TILE_AXIS)]
     for t in tensors:
         data = t.data if isinstance(t, torch.nn.Parameter) else t
         staged = data.to(comm_device(data))
-        dist.broadcast(staged, src=src)
+        for g in groups:
+            dist.broadcast(staged, src=dist.get_global_rank(g, 0), group=g)
         if staged is not data:
             data.copy_(staged)
     return tree

@@ -156,21 +156,40 @@ class RowTiles:
         y = fn(self.exchange(x, [p[0] for p in plans], [p[1] for p in plans], dim))
         return y.narrow(dim, first, rows // stride).contiguous(memory_format=memory_format(y))
 
+    def image_count(self, count: int) -> int:
+        """The whole image's count of what this rank's tile holds ``count``
+        of, in proportion to rows (the same at every resolution)."""
+        return count * sum(self.coarse) // self.coarse[self.index]
+
+    def sum_in_rank_order(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the tile group: every rank's gathered and added
+        in float64 in rank order, so that every rank holds the same bits
+        whatever the arrival order (float64, on ``t``'s device)."""
+        from .collectives import sum_in_rank_order
+
+        return sum_in_rank_order(t, self.group)
+
     def group_statistics(self, sums: torch.Tensor, count: int, eps: float):
         """(mean, rstd) float32 [N, G] of the whole image from this rank's
         group sums float32 [N, G, 2] over ``count`` elements a group on this
-        rank: every rank's sums gathered, added in float64 in rank order and
-        rounded once (``group_norm.combine_sums``), so that every rank of
-        the group holds the same statistics whatever the arrival order."""
-        from ..ops.kernels import group_norm as kg
+        rank: every rank's sums added in float64 in rank order and rounded
+        once (:meth:`sum_in_rank_order`, as ``group_norm.combine_sums``)."""
+        from ..ops.kernels.group_norm import statistics_from_sums
 
-        mine = sums.to(comm_device(sums, self.group)).contiguous()
+        total = self.sum_in_rank_order(sums).float()
+        return statistics_from_sums(total, self.image_count(count), eps)
+
+    def gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The whole image's rows along ``dim`` from every rank's tile ``t``
+        (tiles of unequal heights padded to the tallest for the gather)."""
+        _, counts, _ = self.layout(t.shape[dim])
+        pad = list(t.shape)
+        pad[dim] = max(counts) - counts[self.index]
+        mine = torch.cat([t, t.new_zeros(pad)], dim) if pad[dim] else t
+        mine = mine.to(comm_device(t, self.group)).contiguous()
         parts = [torch.empty_like(mine) for _ in range(self.size)]
         dist.all_gather(parts, mine, group=self.group)
-        total = kg.combine_sums([p.to(sums.device) for p in parts])
-        # count scaled by the image's rows over this rank's
-        return kg.statistics_from_sums(total, count * sum(self.coarse) // self.coarse[self.index],
-                                       eps)
+        return torch.cat([p.narrow(dim, 0, c) for p, c in zip(parts, counts)], dim).to(t.device)
 
     def all_max(self, t: torch.Tensor) -> torch.Tensor:
         """The elementwise max of ``t`` over the tile group."""

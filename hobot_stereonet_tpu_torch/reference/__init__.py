@@ -118,6 +118,20 @@ TRAIN_STEP_BATCH = dict(batch_size=4, crop_hw=(128, 256), seed=0)
 TRAIN_F32_RTOL = 1e-5
 TRAIN_F32_NORM_RTOL = {"fast": 1e-5, "classic": 1e-3}
 TRAIN_F32_GRAD_RTOL = 1e-3
+# The sharded float32 step on a row-tiled mesh (tile > 1) on the card: each
+# gradient within TRAIN_F32_TILE_GRAD_RTOL of the stored step, and all of
+# them together (grad_distance) within TRAIN_F32_GRAD_RTOL.  The tiles'
+# statistics (float64 sums of each tile's float32 chains) round otherwise
+# than one image's chain, so another LeakyReLU input near zero flips branch
+# than in JAX's step and the one-rank step: on the H100 CLASSIC's (1, 2)
+# step read 1.0225e-3 at RefinementNet_0/ConvBlock_0/Conv_0/kernel (the CPU
+# 9.67e-4; there a float64 run puts JAX's and the one-rank step's float32
+# gradient of that tensor 3.0e-4 from it, the tiled one's 9.2e-4), while
+# over all tensors the tiled step lies nearer the float64 run than JAX's
+# float32 step does (median per tensor 1.0e-4 against 2.5e-4; python
+# tests/test_torch_sharded_training.py --accuracy).  Two flips' worth per
+# tensor.
+TRAIN_F32_TILE_GRAD_RTOL = 2e-3
 # bf16: over all the gradients together, the port's bf16 gradient is no
 # farther (relative L2) from JAX's bf16 one than JAX's bf16 is from JAX's
 # float32 one.  Per tensor the two bf16 errors are of one size but
@@ -220,6 +234,13 @@ def bf16_grad_check(got: dict, want16: dict, want32: dict) -> dict:
     ratio = float(np.sqrt(num / den))
     return {"ratio": ratio, "share": within / len(want32), "worst": worst,
             "ok": ratio <= 1.0 and worst[1] <= BF16_TENSOR_RTOL}
+
+
+def grad_distance(got: dict, want: dict) -> float:
+    """The relative L2 distance of ``got`` from ``want`` ({flax path:
+    array} each) over all gradients together."""
+    num = sum(_norm(np.asarray(got[k], np.float64) - w) ** 2 for k, w in want.items())
+    return float(np.sqrt(num / sum(_norm(w) ** 2 for w in want.values())))
 
 
 def grad_mismatches(got: dict, want: dict, rtol: float) -> list:

@@ -16,10 +16,16 @@ follows optax:
 
 The optimizer updates the parameters and its moments in place (JAX returns
 new arrays), with ``torch._foreach_*`` operations: a few launches a step
-for all the tensors.  The sharded step (the reference's
-``make_sharded_train_step``, data and tile) comes next, over the serving
-mesh of ``parallel/``: it needs the halo exchange's backward and a
-cross-tile GroupNorm backward.
+for all the tensors.
+
+:func:`make_sharded_train_step` is the reference's step over a (data, tile)
+mesh (``parallel/mesh.py``), SPMD: each rank runs it on its shard (its data
+slice of the batch, and with ``tile_rows`` its tile's rows), the forward
+row-tiled (``parallel/tiling.py``) with a differentiable halo exchange and
+GroupNorm, the loss over the global batch's valid pixels, and the
+gradients summed over the mesh in rank order before one optimizer update
+on every rank, which leaves the replicated parameters and moments
+bit-equal on every rank.
 """
 
 from __future__ import annotations
@@ -33,6 +39,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel import mesh as mesh_mod, tiling
+from ..parallel.collectives import all_gather_cat, sum_in_rank_order
+from ..parallel.halo import memory_format
 from ..utils.precision import exact_float32
 
 
@@ -64,23 +73,54 @@ def multiscale_loss(outputs: Dict, gt_disparity: torch.Tensor,
     ``0.5 ** (L - 1 - i)``.  Returns (loss, {"loss", "epe"}), the EPE at
     full resolution over the valid pixels.
     """
-    pyramid = outputs["pyramid"]
-    if valid is None:
-        valid = (gt_disparity > 0) & (gt_disparity < max_disparity)
-    valid = valid.float()
+    total, epe = _loss_terms(outputs["pyramid"], gt_disparity, valid, max_disparity,
+                             level_weights)
+    return total, {"loss": total, "epe": epe}
+
+
+def _loss_terms(pyramid, gt: torch.Tensor, valid: Optional[torch.Tensor],
+                max_disparity: float, level_weights: Optional[Sequence[float]],
+                tiles=None, total_counts: Optional[Callable] = None):
+    """(loss, epe) of :func:`multiscale_loss`.  On a mesh: ``tiles`` (the
+    forward's ``RowTiles``, or None) makes ``gt`` and ``valid`` this tile's
+    rows, resized to each level as whole images (gathered over the tile
+    group) and cut back to the tile's rows; ``total_counts`` maps this
+    rank's valid-pixel counts (float32 [levels + 1]) to the global batch's,
+    so that the ranks' losses add up to the global one."""
+    gt_img, valid_img = gt, valid
+    if tiles is not None:
+        gt_img = tiles.gather(gt, 1)
+        valid_img = None if valid is None else tiles.gather(valid.float(), 1)
+    if valid_img is None:
+        valid_img = (gt_img > 0) & (gt_img < max_disparity)
+    valid_img = valid_img.float()
     if level_weights is None:
         level_weights = tuple(0.5 ** (len(pyramid) - 1 - i) for i in range(len(pyramid)))
-    total = 0.0
-    for w_lvl, pred in zip(level_weights, pyramid):
+
+    def rows(img, h, w):            # img resized to a level, this tile's rows of it
+        if tiles is None:
+            return _downsample_disparity(img, h, w)
+        starts, counts, total = tiles.layout(h)
+        i = tiles.index
+        return _downsample_disparity(img, total, w)[:, starts[i]:starts[i] + counts[i]]
+
+    nums, counts = [], []
+    for pred in pyramid:
         h, w = pred.shape[1], pred.shape[2]
-        gt_s = _downsample_disparity(gt_disparity, h, w)
-        v_s = (_downsample_disparity(valid, h, w) > 0.5).float()
-        err = smooth_l1(pred.float() - gt_s)
-        total = total + w_lvl * torch.sum(err * v_s) / torch.clamp(torch.sum(v_s), min=1.0)
+        gt_s = rows(gt_img, h, w)
+        v_s = (rows(valid_img, h, w) > 0.5).float()
+        nums.append(torch.sum(smooth_l1(pred.float() - gt_s) * v_s))
+        counts.append(torch.sum(v_s))
     final = pyramid[-1].float()
-    epe = torch.sum(torch.abs(final - gt_disparity) * valid) / torch.clamp(torch.sum(valid),
-                                                                           min=1.0)
-    return total, {"loss": total, "epe": epe}
+    v = rows(valid_img, *final.shape[1:])
+    nums.append(torch.sum(torch.abs(final - rows(gt_img, *final.shape[1:])) * v))
+    counts.append(torch.sum(v))
+    if total_counts is not None:
+        counts = list(total_counts(torch.stack(counts)))
+    total = 0.0
+    for w_lvl, num, count in zip(level_weights, nums[:-1], counts[:-1]):
+        total = total + w_lvl * num / torch.clamp(count, min=1.0)
+    return total, nums[-1] / torch.clamp(counts[-1], min=1.0)
 
 
 # optax.adamw's defaults, which the reference keeps.
@@ -199,6 +239,104 @@ def make_train_step(model: nn.Module, optimizer: Optimizer,
             raise RuntimeError(f"no gradient reached {missing}")
         opt_state, norm = optimizer.step(state.params, grads, state.opt_state)
         metrics = {"loss": loss.detach(), "epe": metrics["epe"].detach(), "grad_norm": norm}
+        return TrainState(state.params, opt_state, state.step + 1), metrics
+
+    return step
+
+
+def _memory_order(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s elements as a 1-D view in memory order (``t`` contiguous in
+    its memory format, as a parameter's gradient is)."""
+    if not t.is_contiguous(memory_format=memory_format(t)):
+        raise ValueError(f"a gradient of strides {t.stride()} is not dense")
+    return t.as_strided((t.numel(),), (1,))
+
+
+def make_sharded_train_step(model: nn.Module, optimizer: Optimizer, mesh,
+                            max_disparity: float = 192.0, tile_rows: bool = True) -> Callable:
+    """:func:`make_train_step` over a (data, tile) ``mesh`` (a ``DeviceMesh``
+    from ``parallel.mesh.make_mesh``): ``step(state, left, right, gt,
+    valid=None) -> (state, metrics)``, called by every rank of the mesh on
+    its own shard (``parallel.mesh.shard_batch(mesh, x, tile_rows, factor=2^K)``:
+    its data slice of the batch and, with ``tile_rows``, its tile's rows at
+    full resolution, split at 1/2^K).
+
+    Each rank runs the forward on its shard, row-tiled when the mesh has
+    more than one tile (the halo exchange and the GroupNorm's statistics
+    over the tile group, both differentiable), and the loss of
+    :func:`multiscale_loss` over its rows with the valid-pixel counts of the
+    global batch, so that the ranks' losses add up to the global loss.
+    After the backward the gradients, as one flat buffer, are summed over
+    the mesh: gathered over the tile group and added in float64 in rank
+    order, then the same over the data group, and rounded once, so that
+    every rank holds the same bits.  The optimizer then makes the same
+    update on every rank; ``metrics`` (``loss``, ``epe``, ``grad_norm``) are
+    the global ones, the same on every rank.  With ``tile_rows=False`` the
+    ranks of a tile group each run the whole rows of their data slice and
+    take tile rank 0's sums.
+
+    The replicated state: call ``parallel.mesh.replicate(mesh, state.params)``
+    once before the first step (every rank then holds the mesh's first
+    rank's weights) on a fresh or equal optimizer state; the step keeps the
+    parameters and the moments bit-equal on every rank.  The step refuses a
+    tile count that the images' rows at 1/2^K cannot take, and shards of a
+    batch that does not split over ``data``."""
+    if mesh.get_coordinate() is None:
+        raise ValueError("this rank is not on the mesh")
+    mc = mesh_mod.mesh_config(mesh)
+    tile_group = mesh.get_group(mesh_mod.TILE_AXIS)
+    data_group = mesh.get_group(mesh_mod.DATA_AXIS)
+    factor = model.cfg.cost_resolution_divisor
+    layouts: Dict[tuple, Optional[tiling.RowTiles]] = {}
+
+    def mesh_sum(t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the mesh in rank order (float64): over the tile
+        group (without ``tile_rows``: tile rank 0's), then the data group."""
+        t = sum_in_rank_order(t, tile_group) if tile_rows else \
+            all_gather_cat(t[None], tile_group)[0].double()
+        return sum_in_rank_order(t, data_group)
+
+    def tiles_for(left: torch.Tensor) -> Optional[tiling.RowTiles]:
+        key = tuple(left.shape)
+        if key not in layouts:
+            shape = torch.tensor(left.shape[:2], dtype=torch.int64, device=left.device)
+            rows = all_gather_cat(shape[None], tile_group)[:, 1].tolist()
+            batches = all_gather_cat(shape[None], data_group)[:, 0].tolist()
+            if len(set(batches)) > 1:
+                raise ValueError(f"a batch of {sum(batches)} does not split over "
+                                 f"data={mc.data}")
+            tiles = None
+            if tile_rows and mc.tile > 1:
+                tiles = tiling.RowTiles(sum(rows), factor, tile_group)
+                mine = tiles.full_rows()
+                if mine.stop - mine.start != left.shape[1]:
+                    raise ValueError(f"a shard of {left.shape[1]} rows is not this rank's "
+                                     f"tile {mine.start}:{mine.stop} of {sum(rows)} split at "
+                                     f"1/{factor} (parallel.mesh.shard_batch(..., "
+                                     f"factor={factor}))")
+            layouts[key] = tiles
+        return layouts[key]
+
+    def step(state: TrainState, left, right, gt, valid=None):
+        tiles = tiles_for(left)
+        for p in state.params.values():
+            p.grad = None
+        with exact_float32(model.cfg.compute_dtype, left.device):    # the backward too
+            with tiling.row_tiles(tiles):
+                out = model(left, right)
+            loss, epe = _loss_terms(out["pyramid"], gt, valid, max_disparity, None, tiles,
+                                    lambda c: mesh_sum(c).to(c.dtype))
+            loss.backward()
+        grads = {k: p.grad for k, p in state.params.items()}
+        missing = [k for k, g in grads.items() if g is None]
+        if missing:
+            raise RuntimeError(f"no gradient reached {missing}")
+        views = [_memory_order(g) for g in grads.values()]    # the same on every rank
+        flat = mesh_sum(torch.cat(views)).to(views[0].dtype)
+        torch._foreach_copy_(views, list(flat.split([v.numel() for v in views])))
+        opt_state, norm = optimizer.step(state.params, grads, state.opt_state)
+        both = mesh_sum(torch.stack([loss.detach(), epe.detach()])).to(loss.dtype)
+        metrics = {"loss": both[0], "epe": both[1], "grad_norm": norm}
         return TrainState(state.params, opt_state, state.step + 1), metrics
 
     return step

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Two ranks on one card through gloo: tile = 2 engines of both networks and the distributed BA.
+"""Two gloo ranks on one card: tile = 2 engines, the distributed BA, the sharded train step.
 
     python3 scripts/torch_two_ranks_one_card.py --rank R --world 2 --store DIR --out OUT.json
         [--frames 8]
@@ -22,7 +22,17 @@ backend="gloo")``; tensors travel through the host) over a ``FileStore`` in
     over 1 px, max 8 px);
   * ``make_distributed_bundle_adjust`` on a (2, 1) mesh against
     ``bundle_adjust`` on a synthetic problem (4 poses, 64 landmarks): poses
-    within 1e-4, landmarks within 1e-2 (the JAX package's tolerances).
+    within 1e-4, landmarks within 1e-2 (the JAX package's tolerances);
+  * ``make_sharded_train_step`` of both networks from their committed
+    weights on the stored training batch (``reference.train_step_batch``,
+    4 crops of 128x256), float32 and bf16, on a (2, 1) and a (1, 2) mesh:
+    two steps each; the first step's loss, gradient norm and gradients held
+    to the stored JAX step (float32: ``reference.TRAIN_F32_*``, on the
+    (1, 2) mesh each gradient within ``TRAIN_F32_TILE_GRAD_RTOL``; bf16:
+    ``reference.bf16_grad_check`` and ``BF16_LOSS_FACTOR``), the ranks'
+    parameters, moments and metrics bit-equal after each step; rank 0
+    counts the kernels' launches in each step (by name, with the tile's
+    shape) and its GroupNorm calls by input shape.
 
 Rank 0 writes one JSON object to ``--out``; a failed check exits non-zero.
 """
@@ -68,6 +78,144 @@ def ba_problem(device):
     xi0[1:] += rng.normal(0, 0.02, (3, 6)).astype(np.float32)
     lm0 = lm + rng.normal(0, 0.05, lm.shape).astype(np.float32)
     return BAProblem(poses=se3.exp_se3(t(xi0)), landmarks=t(lm0), obs=obs, valid=valid), cam
+
+
+def digest(state) -> str:
+    """A hash of a train state's parameters, moments and step count."""
+    import hashlib
+
+    h = hashlib.sha256(str(state.opt_state["count"]).encode())
+    for k in sorted(state.params):
+        for t in (state.params[k], state.opt_state["mu"][k], state.opt_state["nu"][k]):
+            h.update(t.detach().cpu().contiguous().view(-1).numpy().tobytes())
+    return h.hexdigest()
+
+
+def step_check(model: str, dtype, params: dict, metrics: dict, tiled: bool) -> tuple:
+    """(ok, summary) of a sharded step's first update against the stored JAX
+    step (``params``' gradients are the step's reduced ones); float32 on a
+    row-tiled mesh (``tiled``): each gradient within
+    ``reference.TRAIN_F32_TILE_GRAD_RTOL``, all together within
+    ``TRAIN_F32_GRAD_RTOL`` (the reason is there)."""
+    import torch
+
+    from hobot_stereonet_tpu_torch import reference
+    from hobot_stereonet_tpu_torch.runtime.weights import _flatten, _unwrap, to_flax_params
+
+    stored = reference.load_train_step(model)
+    flat = {"/".join(k): v for k, v in _flatten(_unwrap(to_flax_params(
+        {k: p.grad for k, p in params.items()})))}
+    loss, norm = float(metrics["loss"]), float(metrics["grad_norm"])
+    if dtype == torch.float32:
+        want = stored["f32"]
+        errs = reference.grad_mismatches(flat, want["grads"], 0.0)
+        worst = max(errs, key=lambda e: e[1]) if errs else ("", 0.0)
+        together = reference.grad_distance(flat, want["grads"])
+        per_tensor = reference.TRAIN_F32_TILE_GRAD_RTOL if tiled else \
+            reference.TRAIN_F32_GRAD_RTOL
+        ok = (abs(loss - want["loss"]) <= reference.TRAIN_F32_RTOL * abs(want["loss"])
+              and abs(norm - want["grad_norm"]) <= reference.TRAIN_F32_NORM_RTOL[model]
+              * want["grad_norm"] and worst[1] <= per_tensor
+              and together <= reference.TRAIN_F32_GRAD_RTOL)
+        return ok, {"loss": loss, "jax_loss": want["loss"], "grad_norm": norm,
+                    "jax_grad_norm": want["grad_norm"], "worst_grad": worst[0],
+                    "worst_rel_l2": worst[1], "limit": per_tensor, "all_rel_l2": together,
+                    "beyond_1e-3": sum(e[1] > reference.TRAIN_F32_GRAD_RTOL for e in errs)}
+    f32, b16 = stored["f32"], stored["bf16"]
+    res = reference.bf16_grad_check(flat, b16["grads"], f32["grads"])
+    ok = res["ok"] and abs(loss - f32["loss"]) <= reference.BF16_LOSS_FACTOR * abs(
+        b16["loss"] - f32["loss"])
+    return ok, {"loss": loss, "jax_bf16_loss": b16["loss"], "jax_f32_loss": f32["loss"],
+                "grad_norm": norm, "ratio": res["ratio"], "share": res["share"],
+                "worst": list(res["worst"])}
+
+
+def sharded_training(dev, rank: int) -> dict:
+    """Two sharded steps of each network, precision and mesh (module
+    docstring); returns rank 0's summary, launches and GroupNorm calls."""
+    from collections import Counter
+
+    import torch
+    import torch.distributed as dist
+
+    from hobot_stereonet_tpu_torch import reference
+    from hobot_stereonet_tpu_torch.config import MeshConfig, StereoNetConfig
+    from hobot_stereonet_tpu_torch.models import build_model
+    from hobot_stereonet_tpu_torch.models.layers import GroupNorm
+    from hobot_stereonet_tpu_torch.ops.kernels import build
+    from hobot_stereonet_tpu_torch.parallel.mesh import make_mesh, replicate, shard_batch
+    from hobot_stereonet_tpu_torch.runtime import training
+    from hobot_stereonet_tpu_torch.runtime.train_loop import to_model_input
+    from hobot_stereonet_tpu_torch.runtime.weights import from_flax_params
+
+    out = {"runs": {}, "launches": Counter(), "by_shape": Counter(),
+           "group_norm_by_shape": Counter()}
+    meshes = {shape: make_mesh(MeshConfig(*shape)) for shape in ((2, 1), (1, 2))}
+    for model, npz in (("fast", reference.PARAMS_NPZ), ("classic", reference.CLASSIC_PARAMS_NPZ)):
+        stored = reference.load_train_step(model)
+        cs = str(stored["color_space"])
+        batch = [to_model_input(torch.from_numpy(stored[k]).to(dev), cs)
+                 for k in ("left_u8", "right_u8")] + [torch.from_numpy(stored["disparity"]).to(dev)]
+        flax = reference.load_params(npz)
+        for dtype in (torch.float32, torch.bfloat16):
+            for shape, mesh in meshes.items():
+                cfg = StereoNetConfig(compute_dtype=dtype)
+                net = build_model(model, cfg, dev)
+                net.load_state_dict(from_flax_params(flax, cfg, model))
+                opt = training.make_optimizer()
+                params = replicate(mesh, dict(net.named_parameters()))
+                state = training.TrainState(params, opt.init(params), 0)
+                step = training.make_sharded_train_step(net, opt, mesh, cfg.max_disparity)
+                k = cfg.cost_resolution_divisor
+                shards = [shard_batch(mesh, t, factor=k) for t in batch]
+                tile = (shards[0].shape[0], shards[0].shape[1] // k, shards[0].shape[2] // k)
+                calls = Counter()
+                hooks = [m.register_forward_pre_hook(
+                    lambda mod, a: calls.update([shape_key(a[0])]))
+                    for m in net.modules() if isinstance(m, GroupNorm)]
+                name = f"{model} {str(dtype).removeprefix('torch.')} mesh {shape}"
+                rec = {}
+                for i in range(2):
+                    torch.cuda.synchronize()
+                    build.reset_launch_counts()
+                    t = time.monotonic()
+                    state, m = step(state, *shards)
+                    torch.cuda.synchronize()
+                    rec[f"step{i + 1}_s"] = time.monotonic() - t
+                    if i == 0:
+                        launches, gn = dict(build.launch_counts), sum(calls.values())
+                        out["launches"].update(launches)
+                        out["by_shape"].update({f"{n} {list(tile)}": c
+                                                for n, c in launches.items()})
+                        if shape[1] > 1:          # the split entries' calls
+                            out["group_norm_by_shape"].update(calls)
+                        ok, rec["vs_jax"] = step_check(model, dtype, params, m, shape[1] > 1)
+                        if not ok:
+                            raise AssertionError(f"{name}: the first step against the stored "
+                                                 f"JAX step: {rec['vs_jax']}")
+                        rec["launches"] = launches
+                    mine = [digest(state), [float(v) for v in m.values()]]
+                    every = [None, None]
+                    dist.all_gather_object(every, mine)
+                    if every[0] != every[1]:
+                        raise AssertionError(f"{name}, step {i + 1}: the ranks' states or "
+                                             f"metrics differ: {every}")
+                    rec[f"step{i + 1}_metrics"] = mine[1]
+                for hk in hooks:
+                    hk.remove()
+                want = ("group_norm_stats", "group_norm_apply") if shape[1] > 1 else \
+                    ("group_norm",)
+                want += ("correlation", "correlation_bwd", "soft_argmin", "soft_argmin_bwd") \
+                    if model == "fast" else ("soft_argmin_cost", "soft_argmin_cost_bwd")
+                if any(rec["launches"].get(n, 0) <= 0 for n in want) or any(
+                        rec["launches"].get(n, 0) != gn for n in want if "group_norm" in n):
+                    raise AssertionError(f"{name}: launches {rec['launches']}, GroupNorm calls "
+                                         f"{gn}")
+                out["runs"][name] = rec
+                if rank == 0:
+                    print(json.dumps({name: rec}), flush=True)
+                del net, state, step, params
+    return {k: dict(v) if isinstance(v, Counter) else v for k, v in out.items()}
 
 
 def shape_key(x) -> str:
@@ -165,6 +313,9 @@ def main() -> int:
                  "cost_first_last": [float(got.cost_history[0]), float(got.cost_history[-1])]}
     if out["ba"]["pose_err"] > 1e-4 or out["ba"]["landmark_err"] > 1e-2:
         raise AssertionError(f"distributed BA against one rank: {out['ba']}")
+    t = time.monotonic()
+    out["train"] = sharded_training(dev, args.rank)
+    out["train_s"] = time.monotonic() - t
     distributed.shutdown()
     out["seconds"] = time.monotonic() - t0
     if args.rank == 0:

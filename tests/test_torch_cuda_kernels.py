@@ -1062,7 +1062,8 @@ def test_group_norm_split_entries_over_row_halves(device, n, c, spatial, dtype):
     values' RMS for the mean, rstd for rstd; n elements a group) of the
     whole tensor's: each side is a float32 chain off the exact value by
     about sqrt(n) ulps (measured at 720x1280, n = 921600: 1.1e-4 and 5.7e-5
-    relative, the bound 4.6e-4); each half's output from them equals the
+    relative, the bound 4.6e-4); each half's output from them, and the value
+    before its LeakyReLU kept for the tiled backward (``keep_r``), equal the
     plain version's from the same statistics, bit for bit."""
     from hobot_stereonet_tpu_torch.ops.kernels import group_norm as kg
 
@@ -1089,7 +1090,8 @@ def test_group_norm_split_entries_over_row_halves(device, n, c, spatial, dtype):
             assert bool((d <= ulps * scale).all()), float((d / scale).max())
         for h, s_, cpu_h, cpu_s in zip(halves, skips, halves, skips):
             got = kg.group_norm_apply(h.to(device), wd, bd, mean, rstd, conv_bias=cbd,
-                                      skip=s_.to(device), activate=True)
+                                      skip=s_.to(device), activate=True, keep_r=True)
             want = kg.group_norm_apply(cpu_h, w, b, mean.cpu(), rstd.cpu(), conv_bias=cb,
-                                       skip=cpu_s, activate=True)
-            assert torch.equal(got.cpu(), want), float((got.cpu() != want).float().mean())
+                                       skip=cpu_s, activate=True, keep_r=True)
+            for t, u in zip(got, want):                   # the output, then r
+                assert torch.equal(t.cpu(), u), float((t.cpu() != u).float().mean())
