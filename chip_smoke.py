@@ -13,8 +13,10 @@ Phases, each printed with its elapsed seconds:
      nvcc per source, all at once); each kernel's registers and spills
      (``-Xptxas -v``) and its instruction mix from ``cuobjdump -sass``: the
      bf16 correlation must hold HMMA (tensor-core) instructions, both int8
-     conv kernels IGMMA (warpgroup int8 MMA, wgmma) and the Cin % 8 == 0 one
-     UTMALDG (TMA loads), the one-pass soft-argmin 128-bit loads, the
+     conv kernels IGMMA (warpgroup int8 MMA, wgmma) and each instantiation
+     of the Cin % 8 == 0 one (the three with 8-row tiles, which the dilated
+     convs run, included) IGMMA and UTMALDG (TMA loads), the one-pass
+     soft-argmin 128-bit loads, the
      ingest 128-bit stores, the GroupNorm's scan SHFL (warp shuffles) and
      its walk UBLKCP (bulk copies);
   3. kernels: each kernel against its plain PyTorch version on the card, at
@@ -103,23 +105,25 @@ Phases, each printed with its elapsed seconds:
      32; each conv's time at a chunk of 8, the 3-D conv in NCDHW against
      ``channels_last_3d``, and a 12-channel conv against the same padded to
      16 channels.
- 11b. CLASSIC in int8 (``ops/quant.py``, ``ops/int8_gemm.py``): how many of
-     its 53 convs take the int8 kernel (32, six of them zero padded) and how
-     many the library route (21: im2col, ``torch._int_mm`` and the
-     ``int8_epilogue`` kernel); each conv shape at a chunk of 8 at 720p
-     through its route (``Int8Conv.on_card``) against the plain version,
-     bit for bit in both schemes, timed beside its int8 bound, the plain
-     version and cuDNN's bf16 conv of the shape, and at each library shape
-     the epilogue kernel against its plain version, timed beside its byte
-     bound; both schemes (dynamic, and
+ 11b. CLASSIC in int8 (``ops/quant.py``): all of its 53 convs take the int8
+     kernel (eleven zero padded; the 3-D and the dilated ones too), none
+     the library route; each conv shape at a chunk of 8 at 720p through the
+     kernel (``Int8Conv.on_card``) against the plain version, bit for bit
+     in both schemes, timed beside its int8 bound, the plain version and
+     cuDNN's bf16 conv of the shape; at each 3-D and dilated shape also the
+     library route of ``ops/int8_gemm.py`` (im2col, ``torch._int_mm`` and
+     the ``int8_epilogue`` kernel: the yardstick, exact and timed as
+     ``library_ms``) and its epilogue kernel against its plain version,
+     timed beside its byte bound; both schemes (dynamic, and
      ``reference/classic_calib.json``) on the two stored scenes and the 720p
      frame against JAX's int8 outputs (``classic_int8_outputs.npz``, to the
      CPU tests' bounds); the held-out EPE over the 120 scenes paired against
      the stored JAX int8 EPEs (|mean difference| <= 0.01 px); the int8
      engines (``device_microbatch=8``) serving 32 frames at 720p, streamed
-     == synchronous, with the kernels' launches and the library route's
-     calls counted, and the int8 convs' calls by shape (hooks, held to
-     those counts); ``measure_engine_fps`` at batches 1 and 32.
+     == synchronous, with the kernels' launches (53 ``int8_conv`` a chunk,
+     no ``int8_epilogue``) and the library route's calls (none) counted,
+     and the int8 convs' calls by shape (hooks, held to those counts);
+     ``measure_engine_fps`` at batches 1 and 32.
 
  12. training (``runtime/training.py``, ``train_loop.py``): the three backward
      kernels (``hst_correlation_backward``, ``hst_soft_argmin_backward``,
@@ -215,9 +219,9 @@ error, times and bound at each batch (a GroupNorm row's launches: the calls
 at its very shape in the serving runs of phases 5 and 11, counted by hooks
 on the engines' networks and held to the wrapper's count; a split GroupNorm
 entry's: rank 0's launches at its very tile shape in phase 16's tile = 2
-dispatches of both networks, counted the same way), and, under
-``library``, each CLASSIC shape of the int8 library route (not a kernel)
-with its calls, error, times and bound; the last line is
+dispatches of both networks, counted the same way; the epilogue kernel's:
+0, on no serving path), and, under ``library``, the int8 library route
+(not a kernel; the yardstick) with its calls on the engines; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero; a watchdog
 dumps every thread's stack and exits if the run hangs.  Imports torch,
 numpy and the port only.
@@ -289,10 +293,12 @@ GN_BATCHES = (1, 8, 32)         # batches of the GroupNorm phase
 BWD_SHAPES = ((8, H // 8, W // 8), (32, H // 8, W // 8), (8, 16, 32))
 TRAIN_STEPS, CLASSIC_TRAIN_STEPS, TRAIN_BATCH, TRAIN_CROP = 30, 10, 8, (128, 256)
 INT8_PATH = BF16_PATH + ("int8_conv",)
-CLASSIC_INT8_PATH = CLASSIC_PATH + ("int8_conv", "int8_epilogue")
-# CLASSIC's 53 int8 convs by route: the kernel (the 2-D undilated ones, Cout
-# 1 and 12 and Cin 12 zero padded), the library route (3-D and dilated).
-CLASSIC_INT8_ROUTES = (32, 21)
+CLASSIC_INT8_PATH = CLASSIC_PATH + ("int8_conv",)
+# CLASSIC's 53 int8 convs by route: the kernel (every one: 2-D, dilated and
+# 3-D; Cout 1 and 12 and Cin 12 zero padded), the library route (none; it
+# stays as the yardstick of phase 11b and launches no int8_epilogue on the
+# engines' paths).
+CLASSIC_INT8_ROUTES = (53, 0)
 # CLASSIC int8 on the card against JAX's int8 output (the CPU tests' bounds,
 # tests/test_torch_classic_int8.py: JAX's own int8 CLASSIC moves that far when
 # 1 % or 10 % of its input moves by one ulp, up to 19.6 px at a pixel).
@@ -1446,44 +1452,60 @@ def classic_int8_convs(net, dev) -> list:
 
 
 def classic_int8_conv_rows(net, dev, flush, card) -> tuple:
-    """Each CLASSIC int8 conv shape at a chunk of 8 at 720p, through its
-    route on the card (the int8 kernel or the library route), against the
-    plain version bit for bit in both schemes (the static one with the
-    module's calibrated scale, the dynamic one with the input's per-sample
-    scales); the static call timed beside its int8 bound, the plain
-    version and cuDNN's bf16 conv of the same shape.  At each library
-    shape also the epilogue kernel (``int8_epilogue``) on the static
+    """Each CLASSIC int8 conv shape at a chunk of 8 at 720p, through the
+    int8 kernel (``Int8Conv.on_card``), against the plain version bit for
+    bit in both schemes (the static one with the module's calibrated
+    scale, the dynamic one with the input's per-sample scales); the static
+    call timed beside its int8 bound, the plain version and cuDNN's bf16
+    conv of the same shape.  At each 3-D and dilated shape (the library
+    route's until the kernel took them) also the library route, the
+    yardstick: im2col, ``torch._int_mm`` and the epilogue kernel
+    (``int8_epilogue``), exact against the plain version and timed as
+    ``library_ms``; and the epilogue kernel alone on the route's static
     product, against its plain version with the calibrated scale and with
     per-sample ones, timed beside its byte bound.  Returns (kernel rows,
-    library rows, epilogue rows), each keyed by :func:`int8_conv_key`."""
+    epilogue rows), each conv row keyed by :func:`int8_conv_key`."""
     import torch
     import torch.nn.functional as F
 
-    from hobot_stereonet_tpu_torch.ops import quant
+    from hobot_stereonet_tpu_torch.ops import int8_gemm, quant
     from hobot_stereonet_tpu_torch.ops.kernels import int8_conv as k8
 
-    kernel_rows, library_rows, epilogue_rows = [], [], []
+    kernel_rows, epilogue_rows = [], []
     for name, mod, x, count, key in classic_int8_convs(net, dev):
+        if mod.route != "kernel":
+            raise AssertionError(f"classic int8 {name}: routed to {mod.route}")
         q_w, s_k, b = mod.q_weight, mod.weight_scale, mod.bias
         kw = dict(stride=mod.stride, divide=False, out_dtype=torch.bfloat16)
         s_dyn = quant.activation_scale(x)
+        former = mod.dilation > 1 or x.dim() == 5       # the library route's before
+        w_gemm = int8_gemm.gemm_weight(q_w)
+
         def call(sx, qs, divide):
             return mod.on_card(x, sx, qs, divide=divide)
 
+        def library(sx, qs, divide):
+            return int8_gemm.int8_conv_im2col(x, q_w, w_gemm, s_k, b, sx, qs,
+                                              dilation=mod.dilation, **dict(kw, divide=divide))
+
         err = 0.0
         for sx, qs, divide in ((mod.act_scale, mod.act_mult, False), (s_dyn, s_dyn, True)):
-            got = call(sx, qs, divide)
             want = k8.int8_conv_plain(x, q_w, s_k, b, sx, qs, dilation=mod.dilation,
                                       **dict(kw, divide=divide))
-            torch.cuda.synchronize()
-            err = max(err, (got.float() - want.float()).abs().max().item())
-            if not torch.equal(got, want):
-                raise AssertionError(f"classic int8 {name} ({mod.route}) {tuple(x.shape)} "
-                                     f"divide={divide} differs from the plain version: max "
-                                     f"|err| {err}")
-            del got, want
+            for route, fn in (("kernel", call), ("library", library))[:2 if former else 1]:
+                got = fn(sx, qs, divide)
+                torch.cuda.synchronize()
+                err = max(err, (got.float() - want.float()).abs().max().item())
+                if not torch.equal(got, want):
+                    raise AssertionError(f"classic int8 {name} ({route}) {tuple(x.shape)} "
+                                         f"divide={divide} differs from the plain version: max "
+                                         f"|err| {err}")
+                del got
+            del want
         out_shape = tuple(call(mod.act_scale, mod.act_mult, False).shape)
         ms = median_ms(lambda: call(mod.act_scale, mod.act_mult, False), flush, iters=10)
+        library_ms = median_ms(lambda: library(mod.act_scale, mod.act_mult, False), flush,
+                               iters=10) if former else None
         plain_ms = median_ms(lambda: k8.int8_conv_plain(
             x, q_w, s_k, b, mod.act_scale, mod.act_mult, dilation=mod.dilation, **kw), flush,
             iters=1, warmup=1)
@@ -1496,38 +1518,47 @@ def classic_int8_conv_rows(net, dev, flush, card) -> tuple:
                              iters=10)
         k_red = q_w[0].numel()
         n_out = torch.Size(out_shape).numel()
-        padded = mod.route == "kernel" and mod.channels != tuple(q_w.shape[1::-1])
+        padded = mod.channels != tuple(q_w.shape[1::-1])
         note = f" (padded to {mod.channels[0]} -> {mod.channels[1]})" if padded else ""
+        plan = k8.plan(x.shape[0], mod.channels[0], *x.shape[-2:], mod.channels[1],
+                       q_w.shape[-1], mod.stride, x.dtype, torch.bfloat16, mod.dilation,
+                       x.shape[2] if x.dim() == 5 else 0)
         row = dict(shape=f"{name} {list(x.shape)} -> {mod.q_weight.shape[0]}"
                          f"{f' dilation {mod.dilation}' if mod.dilation > 1 else ''}{note}",
                    convs=count, batch=8, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                   tolerance="exact", cudnn_bf16_ms=cudnn_ms, library_ms=None,
-                   launch_key=key,
+                   tolerance="exact", cudnn_bf16_ms=cudnn_ms, library_ms=library_ms,
+                   launch_key=key, former_library=former, tile_rows=plan.th,
                    bound=bound(x.numel() * x.element_size() + q_w.numel() + 2 * n_out,
                                2.0 * n_out * k_red, INT8_OPS))
-        (library_rows if mod.route == "library" else kernel_rows).append(row)
-        phase(f"classic int8 conv ({mod.route}) {row['shape']} (x{count}): exact in both "
-              f"schemes; {ms:.4f} ms, bound {row['bound'][0]:.4f} ms ({row['bound'][1]}, "
-              f"{100 * row['bound'][0] / ms:.0f}% of it), plain {plain_ms:.1f} ms, cuDNN bf16 "
-              f"conv of the shape {cudnn_ms:.4f} ms; {card}")
+        kernel_rows.append(row)
+        lib = (f", the library route (yardstick) {library_ms:.4f} ms, kernel / library "
+               f"{ms / library_ms:.3f}" if former else "")
+        phase(f"classic int8 conv (kernel, {plan.th}-row tiles) {row['shape']} (x{count}): exact "
+              f"in both schemes; {ms:.4f} ms, bound {row['bound'][0]:.4f} ms "
+              f"({row['bound'][1]}, {100 * row['bound'][0] / ms:.0f}% of it), plain "
+              f"{plain_ms:.1f} ms, cuDNN bf16 conv of the shape {cudnn_ms:.4f} ms{lib}; {card}")
         del x16, wt
-        if mod.route == "library":
-            epilogue_rows.append(epilogue_row(row, mod, x, s_dyn, flush, card))
-        del x
+        if former:
+            epilogue_rows.append(epilogue_row(row, mod, x, w_gemm, s_dyn, flush, card))
+        del x, w_gemm
     torch.cuda.empty_cache()
-    for label, rows in (("kernel", kernel_rows), ("library route", library_rows)):
+    for label, rows in (("all", kernel_rows),
+                        ("3-D and dilated", [r for r in kernel_rows if r["former_library"]])):
         total = sum(r["ms"] * r["convs"] for r in rows)
         limit = sum(r["bound"][0] * r["convs"] for r in rows)
         cudnn = sum(r["cudnn_bf16_ms"] * r["convs"] for r in rows)
-        phase(f"classic int8 convs by the {label}: {sum(r['convs'] for r in rows)} convs, "
-              f"{len(rows)} shapes; a chunk of 8: {total:.3f} ms (bound {limit:.3f} ms, "
-              f"{100 * limit / total:.0f}% of it; cuDNN bf16 {cudnn:.3f} ms); {card}")
-    return kernel_rows, library_rows, epilogue_rows
+        lib = sum((r["library_ms"] or 0.0) * r["convs"] for r in rows)
+        phase(f"classic int8 convs through the kernel, {label}: {sum(r['convs'] for r in rows)} "
+              f"convs, {len(rows)} shapes; a chunk of 8: {total:.3f} ms (bound {limit:.3f} ms, "
+              f"{100 * limit / total:.0f}% of it; cuDNN bf16 {cudnn:.3f} ms"
+              f"{f'; the library route {lib:.3f} ms' if lib else ''}); {card}")
+    return kernel_rows, epilogue_rows
 
 
-def epilogue_row(conv_row: dict, mod, x, s_dyn, flush, card) -> dict:
-    """The library route's epilogue kernel at one conv shape: on the
-    route's int32 product in the static scheme, bit for bit against its
+def epilogue_row(conv_row: dict, mod, x, w_gemm, s_dyn, flush, card) -> dict:
+    """The library route's epilogue kernel (on no serving path: the
+    yardstick's) at one conv shape: on the route's int32 product in the
+    static scheme, bit for bit against its
     plain version (``epilogue``, float64 with TwoSum) with the calibrated
     scale and with the per-sample ones ``s_dyn``; timed beside its byte
     bound (the int32 values read once, the bf16 outputs written once)."""
@@ -1536,7 +1567,7 @@ def epilogue_row(conv_row: dict, mod, x, s_dyn, flush, card) -> dict:
     from hobot_stereonet_tpu_torch.ops import int8_gemm
     from hobot_stereonet_tpu_torch.ops.kernels import int8_conv as k8
 
-    acc, m, _ = int8_gemm.int8_product(x, mod.q_weight, mod.packed_weight, mod.act_mult,
+    acc, m, _ = int8_gemm.int8_product(x, mod.q_weight, w_gemm, mod.act_mult,
                                        stride=mod.stride, dilation=mod.dilation, divide=False)
     cout, per = mod.q_weight.shape[0], m // x.shape[0]
     s_k, b = mod.weight_scale, mod.bias
@@ -1559,7 +1590,7 @@ def epilogue_row(conv_row: dict, mod, x, s_dyn, flush, card) -> dict:
     plain_ms = median_ms(lambda: plain(mod.act_scale), flush, iters=1, warmup=1)
     row = dict(shape=f"{conv_row['shape']}: [{m}, {acc.shape[1]}] int32 -> [{m}, {cout}] bf16",
                convs=conv_row["convs"], batch=8, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-               tolerance="exact", library_ms=None, launch_key=conv_row["launch_key"],
+               tolerance="exact", library_ms=None,
                bound=bound(m * cout * (4.0 + 2.0), 3.0 * m * cout))
     phase(f"kernel int8_epilogue [{row['shape']}] (x{row['convs']}): exact with the calibrated "
           f"and per-sample scales; {ms:.4f} ms, bound {row['bound'][0]:.4f} ms "
@@ -1578,10 +1609,10 @@ def check_int8_spread(tag: str, st: dict) -> None:
 
 
 def classic_int8_phase(ctx: dict) -> tuple:
-    """Phase 11b, CLASSIC in int8; returns (int8 kernel rows, library rows,
-    epilogue kernel rows, {(kernel, scheme): launches on the int8 engines'
-    paths}, the library route's calls on them by scheme, and their int8
-    conv calls by scheme and :func:`int8_conv_key`)."""
+    """Phase 11b, CLASSIC in int8; returns (int8 kernel rows, epilogue kernel
+    rows, {(kernel, scheme): launches on the int8 engines' paths}, the
+    library route's calls on them by scheme (none), and their int8 conv
+    calls by scheme and :func:`int8_conv_key`)."""
     import numpy as np
     import torch
 
@@ -1608,19 +1639,17 @@ def classic_int8_phase(ctx: dict) -> tuple:
         m.load_state_dict(from_flax_params(params, mcfg, "classic"))
         return quant.serving_model(m, **kw)
 
-    # The routes, and each conv shape through its route against the plain version.
+    # The routes, and each conv shape through the kernel against the plain version.
     t = time.monotonic()
     static_net = net(**schemes["static"])
     routes = quant.routes(static_net)
     by_route = {r: sorted(k for k, v in routes.items() if v == r) for r in ("kernel", "library")}
     phase(f"classic int8: {len(routes)} convs, {len(by_route['kernel'])} through the int8 kernel "
-          f"and {len(by_route['library'])} through the library route (im2col + torch._int_mm); "
-          f"library: {by_route['library']}")
+          f"and {len(by_route['library'])} through the library route (im2col + torch._int_mm)")
     if (len(by_route["kernel"]), len(by_route["library"])) != CLASSIC_INT8_ROUTES:
         raise AssertionError(f"classic int8 routes: {by_route}")
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-    kernel_rows, library_rows, epilogue_rows = classic_int8_conv_rows(static_net, dev, flush,
-                                                                       card)
+    kernel_rows, epilogue_rows = classic_int8_conv_rows(static_net, dev, flush, card)
     del flush, static_net
     phase(f"classic int8: conv shapes checked and timed ({time.monotonic() - t:.1f} s)")
 
@@ -1688,7 +1717,7 @@ def classic_int8_phase(ctx: dict) -> tuple:
                 or by_route["kernel"] != kernel_convs * chunks
                 or library_calls[scheme] != library_convs * chunks
                 or by_route["library"] != library_convs * chunks
-                or counts["int8_epilogue"] != library_convs * chunks
+                or counts.get("int8_epilogue", 0) != 0
                 or counts["soft_argmin_cost"] != chunks):
             raise AssertionError(f"classic int8 {scheme} engine: "
                                  f"{eng.metrics.dispatch_batch.summary()}, launches {counts}, "
@@ -1718,7 +1747,7 @@ def classic_int8_phase(ctx: dict) -> tuple:
                 n_batches=nb, device_microbatch=8, ring_size=2, height=H, width=W, **kw))
             phase(f"bench classic int8 {scheme}: measure_engine_fps batch {b}: {out}; launches "
                   f"{counts}; {card} ({time.monotonic() - t:.1f} s)")
-    return kernel_rows, library_rows, epilogue_rows, launches, library_calls, conv_calls
+    return kernel_rows, epilogue_rows, launches, library_calls, conv_calls
 
 
 def check_backward(name: str, got, want) -> str:
@@ -3051,15 +3080,22 @@ def main() -> int:
     hmma = sass("correlation_bf16_kernel", "HMMA")
     vec = sass("soft_argmin_vector_kernel", "LDG.128")
     igmma = min(sass(k, "IGMMA") for k in ("int8_conv_wgmma_kernel", "int8_conv_dense_kernel"))
-    tma = sass("int8_conv_wgmma_kernel", "UTMALDG")
+    # Each instantiation of the TMA kernel, the 8-row tiles of the dilated
+    # and 3-D convs included, issues wgmma and TMA loads.
+    wgmma_fns = {fn: (info.get("sass", {}).get("IGMMA", 0), info.get("sass", {}).get("UTMALDG", 0))
+                 for fn, info in report.items() if fn.startswith("int8_conv_wgmma_kernel<")}
+    tall = sorted(fn for fn in wgmma_fns if fn.endswith(",2>"))
+    tma = min(min(v) for v in wgmma_fns.values()) if len(tall) == 3 else 0
+    phase(f"build: int8_conv_wgmma_kernel instantiations (IGMMA, UTMALDG): {wgmma_fns}")
     ingest_st = sass("nv12_ingest_kernel", "STG.128")
     gn_shfl = sass("group_norm_scan_kernel", "SHFL")
     gn_bulk = sass("group_norm_walk_kernel", "UBLKCP")
     if min(hmma, vec, igmma, tma, ingest_st, gn_shfl, gn_bulk) <= 0:
         raise AssertionError(f"expected HMMA in correlation_bf16_kernel ({hmma}), 128-bit "
                              f"loads in soft_argmin_vector_kernel ({vec}), IGMMA (warpgroup "
-                             f"int8 MMA) in both int8 conv kernels ({igmma}), UTMALDG (TMA "
-                             f"loads) in int8_conv_wgmma_kernel ({tma}), 128-bit stores in "
+                             f"int8 MMA) in both int8 conv kernels ({igmma}), IGMMA and UTMALDG "
+                             f"(TMA loads) in each int8_conv_wgmma_kernel, three with 8-row "
+                             f"tiles ({wgmma_fns}), 128-bit stores in "
                              f"nv12_ingest_kernel ({ingest_st}), SHFL (warp shuffles: the "
                              f"scan's combines) in group_norm_scan_kernel ({gn_shfl}) and "
                              f"UBLKCP (bulk copies) in group_norm_walk_kernel ({gn_bulk})")
@@ -3375,9 +3411,10 @@ def main() -> int:
     rows += classic_rows
 
     # 11b. CLASSIC in int8 ----------------------------------------------------------
-    c8_rows, library_rows, epi_rows, c8_launches, library_calls, c8_calls = classic_int8_phase(
+    c8_rows, epi_rows, c8_launches, library_calls, c8_calls = classic_int8_phase(
         dict(dev=dev, card=card, rng=rng, heldout=heldout))
     path_launches.update(c8_launches)
+    path_launches.setdefault(("int8_epilogue", "classic static"), 0)   # on no serving path
     src8 = dict(name="int8_conv", route="cuda",
                 source="hobot_stereonet_tpu_torch/csrc/int8_conv.cu",
                 replaces="hobot_stereonet_tpu/ops/quant.py:92 (XLA s8 conv, not Pallas)")
@@ -3434,21 +3471,17 @@ def main() -> int:
         batch=r["batch"], launches=row_launches(r), max_abs_err=r["max_abs_err"], ms=r["ms"],
         plain_ms=r["plain_ms"], bound_ms=r["bound"][0], bound_by=r["bound"][1],
         library_ms=r["library_ms"],
-        **{k: r[k] for k in ("cudnn_bf16_ms", "unfused_ms", "other_mode_ms") if k in r},
+        **{k: r[k] for k in ("cudnn_bf16_ms", "unfused_ms", "other_mode_ms", "tile_rows")
+           if k in r},
         **({"sharded_step_launches": sharded_launches(r)} if r["name"] in (
             "group_norm_stats", "group_norm_apply", "correlation_bwd", "soft_argmin_bwd",
             "soft_argmin_cost_bwd") else {}))
         for r in rows], "library": dict(
             name="int8_conv_im2col",
-            route="library: im2col + torch._int_mm, then the int8_epilogue kernel (not a kernel)",
-            source="hobot_stereonet_tpu_torch/ops/int8_gemm.py",
-            replaces="hobot_stereonet_tpu/ops/quant.py:92 (XLA s8 conv, not Pallas)",
-            calls=library_calls, shapes=[dict(
-                shape=r["shape"], convs=r["convs"], batch=r["batch"],
-                calls={s: c8_calls[s].get(r["launch_key"], 0) for s in c8_calls},
-                max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
-                bound_ms=r["bound"][0], bound_by=r["bound"][1],
-                cudnn_bf16_ms=r["cudnn_bf16_ms"]) for r in library_rows])}), flush=True)
+            route="library: im2col + torch._int_mm, then the int8_epilogue kernel (not a kernel;"
+                  " the yardstick of the 3-D and dilated int8 convs' library_ms)",
+            source="hobot_stereonet_tpu_torch/ops/int8_gemm.py", calls=library_calls)}),
+          flush=True)
     phase(f"done in {time.monotonic() - T0:.1f} s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

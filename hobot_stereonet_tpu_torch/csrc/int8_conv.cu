@@ -7,14 +7,16 @@
 // _int8_conv_static at :219); PyTorch offers no s8 x s8 -> s32 conv.
 //
 // in : x   [N, H, W, Cin]   float32 or bfloat16 (an NCHW tensor in
-//                            channels-last memory), unquantized;
+//                            channels-last memory), unquantized; or
+//           [N, D, H, W, Cin] (NCDHW in channels_last_3d) for a 3-D conv;
 //      w   pack_weight's layout (ops/kernels/int8_conv.py): for each slice of
 //          BN output channels, for each step of 32 along the reduction
 //          k = tap * Cp + channel, the wgmma core matrices of a K-major B
 //          operand without swizzle;
 //      s_k, bias [Cout] float32; sx, qs [N] or [1] float32;
 //      plan: struct PlanArgs, the launch plan int8_conv.plan() chose.
-// out: y   [N, Ho, Wo, Cout] float32 or bfloat16, flax "SAME" padding:
+// out: y   [N, Ho, Wo, Cout] ([N, D, Ho, Wo, Cout]) float32 or bfloat16, flax
+//      "SAME" padding, taps `dil` pixels apart:
 //      q   = clip(rint(x / qs[n]), +-127)   (divide = 1, dynamic scales)
 //            clip(rint(x * qs), +-127)      (divide = 0, static 1/s_x)
 //      y   = fma(float(sum q * w), sx[n] * s_k[c], bias[c]), one rounding.
@@ -23,7 +25,7 @@
 // flags do not change them.  Zero padding is exact: q(0) = 0.  Integer sums
 // are exact in any order, so the result is bit-equal to the plain version.
 //
-// GEMM: M = N*Ho*Wo output pixels, N = Cout, K = kh*kw*Cin.  Bound on the
+// GEMM: M = N*(D*)Ho*Wo output pixels, N = Cout, K = (kd*)kh*kw*Cin.  Bound on the
 // H100 at the flagship's widths: memory (a 3x3 32 -> 32 conv does 576 int8
 // operations per output value against 4 bytes moved, under the 590 at which
 // 1979 TOP/s and 3.35 TB/s balance), except the 576-channel mask head, where
@@ -63,6 +65,23 @@
 // pixels x 64 channels in shared memory and stores 16-byte vectors, while
 // the producer already loads the next tiles.
 //
+// Dilation and 3-D taps (CLASSIC's refinement and cost aggregation; the
+// JAX package's rhs_dilation and NDHWC convs) change only what a stage
+// holds and where a tap lies in it.  A dilated conv's halo is (th - 1) +
+// 2 dil + 1 rows by 15 + 2 dil + 1 columns and tap (r, s) starts r * dil
+// rows and s * dil columns in (the offset table); its tiles are 8 rows (two
+// wgmma tiles a warp, M = 2) at the slices built for it, so that the wider
+// halo is loaded and quantized once for twice the outputs.  A 3-D conv's
+// tile is 4 x 16 pixels of one output plane d; its stage is one 5-D TMA
+// box (C, W, H, D, N) holding the planes d - 1, d, d + 1, whose zero fill
+// past the depth edges is the SAME padding there (q(0) = 0); the int8
+// tile stacks the three planes' halos and the table holds 27 taps, so
+// the reduction runs 27 steps of 32.  Each (n, d) plane is a separate tile
+// of the walk; its tiles stay 4 rows (an 8-row stage of three planes fits
+// one block an SM, and measured slower: scripts/torch_int8_tile_rows.py).
+// So no im2col and no int32 product reaches device memory, and the
+// epilogue stays in the accumulators' registers.
+//
 // Cin % 8 != 0 (int8_conv_dense_kernel, the first conv, Cin = 3; blocks of
 // one warpgroup): the halo rows (6 or 12 bytes a pixel, not a box TMA
 // always takes) are copied with 16-byte cp.async along each row, aligned
@@ -101,7 +120,7 @@ constexpr int PITCH = 48;                    // bytes a pixel in the int8 tile, 
 constexpr int MAX_STAGES = 3;                // stages of one ring
 constexpr int RINGS = 2;                     // TMA path: one ring per consumer warpgroup
 constexpr int TILE_ROWS = 4, TILE_COLS = 16; // one wgmma tile (M = 64)
-constexpr int PLAN_VERSION = 2;              // int8_conv.PLAN_VERSION
+constexpr int PLAN_VERSION = 3;              // int8_conv.PLAN_VERSION
 constexpr int EPI_CH = 64;                   // channels of one epilogue pass
 constexpr int SMEM_MAX = 232448;
 constexpr int BULK_CHUNK = 32768;
@@ -113,7 +132,7 @@ struct PlanArgs {
   int N, H, W, Cin, Ho, Wo, Cout, KS, stride, pad_t, pad_l, x_bf16, y_bf16, dense, bn,
       n_slices, cpt, slices, k_blocks, taps, th, tw, ih, iw, iwh, aw, bc, rings, stages,
       stage_bytes, row_bytes, aq_pitch, aq_bytes, epi_pitch, w_bytes, off_stage, off_aq,
-      off_epi, off_par, off_tab, off_bar, smem, tiles_h, tiles_w, tiles;
+      off_epi, off_par, off_tab, off_bar, smem, tiles_h, tiles_w, tiles, dil, D, KD, pad_f;
 };
 
 struct ConvParams {
@@ -166,6 +185,16 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(c4)
       : "memory");
 }
 
@@ -443,9 +472,10 @@ __device__ __forceinline__ uint32_t lds32(const uint8_t* p) {
 
 // ---- tiles -------------------------------------------------------------------------
 
-// Tile t of the walk: image n, output origin (ho0, wo0), input origin (hi0, wi0).
+// Tile t of the walk: plane nd = n * D + d (sample n, output plane d; nd =
+// n in 2-D), output origin (ho0, wo0), input origin (di0, hi0, wi0).
 struct Tile {
-  int n, ho0, wo0, hi0, wi0;
+  int n, nd, ho0, wo0, di0, hi0, wi0;
 };
 
 __device__ __forceinline__ Tile tile_of(const PlanArgs& g, int t) {
@@ -453,7 +483,9 @@ __device__ __forceinline__ Tile tile_of(const PlanArgs& g, int t) {
   const int tw = t % g.tiles_w;
   t /= g.tiles_w;
   const int th = t % g.tiles_h;
-  tl.n = t / g.tiles_h;
+  tl.nd = t / g.tiles_h;
+  tl.n = tl.nd / g.D;
+  tl.di0 = tl.nd - tl.n * g.D - g.pad_f;
   tl.ho0 = th * g.th;
   tl.wo0 = tw * g.tw;
   tl.hi0 = tl.ho0 * g.stride - g.pad_t;
@@ -469,7 +501,8 @@ __device__ __forceinline__ int col_pos(const PlanArgs& g, int col) {
 }
 
 // Shared memory set up once per block: the slice's s_k and bias, and the
-// offset into the int8 tile of each tap (TMA path) or of each k-step unit
+// offset into the int8 tile of each tap (kd, r, s) (TMA path: plane kd's
+// halo starts kd * ih rows in, taps dil pixels apart) or of each k-step unit
 // 8 * kb + 4 * half + t4 (dense path: unit u is tap u / (cpt / 4), channel
 // group u % (cpt / 4); units past the taps read tap 0, whose weights there
 // are zero).
@@ -492,9 +525,10 @@ __device__ __forceinline__ void block_setup(const ConvParams& p, int n0, uint8_t
       tab[u] = (r * g.aw + col_pos(g, s)) * g.cpt + 4 * grp;
     }
   } else {
+    const int plane = g.KS * g.KS;
     for (int tap = threadIdx.x; tap < g.taps; tap += blockDim.x) {
-      const int r = tap / g.KS, s = tap - r * g.KS;
-      tab[tap] = (r * g.aw + col_pos(g, s)) * PITCH;
+      const int kd = tap / plane, rs = tap - kd * plane, r = rs / g.KS, s = rs - r * g.KS;
+      tab[tap] = ((kd * g.ih + r * g.dil) * g.aw + col_pos(g, s * g.dil)) * PITCH;
     }
   }
 }
@@ -514,7 +548,7 @@ __device__ __forceinline__ void store_rows(const ConvParams& p, const Tile& tl, 
     const int px = u / vecs, v = u - px * vecs;
     const int wo = tl.wo0 + px;
     if (wo >= g.Wo) continue;
-    const long long m = (static_cast<long long>(tl.n) * g.Ho + ho) * g.Wo + wo;
+    const long long m = (static_cast<long long>(tl.nd) * g.Ho + ho) * g.Wo + wo;
     *reinterpret_cast<uint4*>(static_cast<Tout*>(p.y) + m * g.Cout + c0 + v * PER) =
         *reinterpret_cast<const uint4*>(stage + px * g.epi_pitch + v * 16);
   }
@@ -572,8 +606,8 @@ __device__ __forceinline__ void epilogue(const ConvParams& p, const Tile& tl, in
 
 // ---- Cin % 8 == 0: TMA ring, producer warp, two consumer warpgroups ----------
 
-// One stage (ih x iw pixels x bc channels of Tin) -> the int8 tile (ih x aw
-// pixels x PITCH bytes, 32 channels, zero past bc), by one warpgroup: thread
+// One stage (KD * ih x iw pixels x bc channels of Tin) -> the int8 tile (KD *
+// ih x aw pixels x PITCH bytes, 32 channels, zero past bc), by one warpgroup: thread
 // t quantizes the 8 channels 8 * (t % 4) of every 32nd pixel from t / 4, two
 // pixels a step.
 template <typename Tin, bool DIVIDE>
@@ -585,7 +619,7 @@ __device__ __forceinline__ void quantize_stage(const PlanArgs& g, const uint8_t*
   uint8_t* dst = aq + 8 * (tid & 3);
   const bool live = 8 * (tid & 3) < g.bc;
   const int dr = STEP / g.iw, dc = STEP - dr * g.iw;
-  const int npix = g.ih * g.iw;
+  const int npix = g.KD * g.ih * g.iw;
   int pix = tid >> 2;
   int row = pix / g.iw, col = pix - row * g.iw;
   uint64_t redo = 0;                      // bit j: this thread's j-th pixel needs code_exact
@@ -633,11 +667,14 @@ __device__ __forceinline__ void quantize_stage(const PlanArgs& g, const uint8_t*
 
 // A warp's output rows on the dense path: two (orow and orow + 4: two
 // M = 64 tiles, whose wgmma chains run side by side) for slices of up to 32
-// channels, else one; one on the TMA path (two there cost more in the halo
-// of a 5x5 stride-2 conv than they gain).  wgmma steps per commit group (two
-// groups in flight): fewer with two tiles, for the registers.
+// channels, else one; on the TMA path one (two there cost more in the halo
+// of a 5x5 stride-2 conv than they gain), or two for a dilated conv at the
+// slices TALL names.  wgmma steps per commit group (two groups in flight):
+// fewer with two tiles, for the registers.
 template <int BN>
 constexpr int DENSE_MT = BN <= 32 ? 2 : 1;
+template <int BN>
+constexpr bool TALL = BN == 8 || BN == 16 || BN == 32;   // int8_conv.TALL_BN
 template <int M>
 constexpr int GROUP = M == 2 ? 2 : 3;
 
@@ -706,7 +743,7 @@ __device__ __forceinline__ void mma_steps(int steps, const Step& step, int (&acc
   keep_live(a1);
 }
 
-template <int BN>
+template <int BN, int M>
 __global__ void __launch_bounds__(CONSUMERS + PRODUCER_THREADS, BN <= 64 ? 2 : 1)
     int8_conv_wgmma_kernel(const __grid_constant__ CUtensorMap tmap, const ConvParams p) {
   extern __shared__ __align__(1024) uint8_t smem[];
@@ -733,21 +770,25 @@ __global__ void __launch_bounds__(CONSUMERS + PRODUCER_THREADS, BN <= 64 ? 2 : 1
   if (warp == CONSUMERS / 32) {
     // Producer: the slice's weights once, then the halo of every (tile,
     // slice), the walk's j-th tile into the ring of warpgroup j % 2 as its
-    // items (j / 2) * slices + c.
+    // items (j / 2) * slices + c; a 3-D conv's KD planes as one 5-D box.
     if (lane == 0) {
       mbar_expect_tx(wbar, g.w_bytes);
       const int8_t* src = p.w + static_cast<long long>(ns) * g.w_bytes;
       for (int off = 0; off < g.w_bytes; off += BULK_CHUNK)
         bulk_load(smem_u32(smem) + off, src + off, min(BULK_CHUNK, g.w_bytes - off), wbar);
-      const uint32_t box = g.ih * g.iw * g.bc * (g.x_bf16 ? 2 : 4);
+      const uint32_t box = g.KD * g.ih * g.iw * g.bc * (g.x_bf16 ? 2 : 4);
+      const bool planes = g.D > 1 || g.KD > 1;
       for (int j = 0, t = blk; t < g.tiles; t += nblk, ++j) {
         const Tile tl = tile_of(g, t);
         for (int c = 0; c < g.slices; ++c) {
           const int i = (j >> 1) * g.slices + c, s = (j & 1) * g.stages + i % g.stages;
+          const uint32_t dst = smem_u32(smem + g.off_stage + s * g.stage_bytes);
           mbar_wait(empty0 + 8 * s, ((i / g.stages) & 1) ^ 1);
           mbar_expect_tx(full0 + 8 * s, box);
-          tma_load_4d(smem_u32(smem + g.off_stage + s * g.stage_bytes), &tmap, full0 + 8 * s,
-                      32 * c, tl.wi0, tl.hi0, tl.n);
+          if (planes)
+            tma_load_5d(dst, &tmap, full0 + 8 * s, 32 * c, tl.wi0, tl.hi0, tl.di0, tl.n);
+          else
+            tma_load_4d(dst, &tmap, full0 + 8 * s, 32 * c, tl.wi0, tl.hi0, tl.n);
         }
       }
     }
@@ -765,17 +806,21 @@ __global__ void __launch_bounds__(CONSUMERS + PRODUCER_THREADS, BN <= 64 ? 2 : 1
   const float* par = reinterpret_cast<const float*>(smem + g.off_par);
   const int* tab = reinterpret_cast<const int*>(smem + g.off_tab);
   const uint32_t bs = smem_u32(smem);
-  // A of tap t: this warp's 16 pixels, row orow * stride + r, columns
-  // col_pos(s) onward (tab[t]); B: k-block t * slices + c.
+  // A of tap t for the warp's m-th wgmma tile: its 16 pixels, row (orow +
+  // 4 m) * stride + r, columns col_pos(s) onward (tab[t]); B: k-block
+  // t * slices + c.
   const uint8_t* arow = aq + (orow * g.stride * g.aw + g8) * PITCH + 4 * t4;
+  const int mrow = TILE_ROWS * g.stride * g.aw * PITCH;
   const int ntile = (g.tiles - blk + nblk - 1) / nblk;
-  int acc[1][BN / 2];
+  int acc[M][BN / 2];
   mbar_wait(wbar, 0);
   for (int j = wg; j < ntile; j += 2) {
     const Tile tl = tile_of(g, blk + j * nblk);
     const QScale qs = qscale_of(p, tl.n);
 #pragma unroll
-    for (int i = 0; i < BN / 2; ++i) acc[0][i] = 0;
+    for (int m = 0; m < M; ++m)
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[m][i] = 0;
     for (int c = 0; c < g.slices; ++c) {
       const int i = (j >> 1) * g.slices + c, s = wg * g.stages + i % g.stages;
       const uint8_t* stage = smem + g.off_stage + s * g.stage_bytes;
@@ -789,16 +834,21 @@ __global__ void __launch_bounds__(CONSUMERS + PRODUCER_THREADS, BN <= 64 ? 2 : 1
       __syncwarp();
       if (lane == 0) mbar_arrive(empty0 + 8 * s);
       warpgroup_sync(wg);
-      mma_steps<BN, 1>(g.taps, [&](int tap, uint32_t (&r)[1][4]) {
-        const uint8_t* ap = arow + tab[tap];
-        r[0][0] = lds32(ap);
-        r[0][1] = lds32(ap + 8 * PITCH);
-        r[0][2] = lds32(ap + 16);
-        r[0][3] = lds32(ap + 8 * PITCH + 16);
+      mma_steps<BN, M>(g.taps, [&](int tap, uint32_t (&r)[M][4]) {
+#pragma unroll
+        for (int m = 0; m < M; ++m) {
+          const uint8_t* ap = arow + m * mrow + tab[tap];
+          r[m][0] = lds32(ap);
+          r[m][1] = lds32(ap + 8 * PITCH);
+          r[m][2] = lds32(ap + 16);
+          r[m][3] = lds32(ap + 8 * PITCH + 16);
+        }
         return bs + (tap * g.slices + c) * (BN * 32);
       }, acc);
     }
-    epilogue<BN>(p, tl, ns * BN, orow, acc[0], epi, par);
+#pragma unroll
+    for (int m = 0; m < M; ++m)
+      epilogue<BN>(p, tl, ns * BN, orow + TILE_ROWS * m, acc[m], epi, par);
   }
 }
 
@@ -1016,40 +1066,60 @@ int grid_of(const void* fn, const PlanArgs& g, int threads, int* grid) {
   return 0;
 }
 
+template <int BN, int M>
+int launch_tma(const ConvParams& p, const CUtensorMap& map, cudaStream_t stream) {
+  const void* fn = reinterpret_cast<const void*>(int8_conv_wgmma_kernel<BN, M>);
+  int grid = 0;
+  const int err = grid_of(fn, p.g, CONSUMERS + PRODUCER_THREADS, &grid);
+  if (err != 0) return err;
+  int8_conv_wgmma_kernel<BN, M><<<grid, CONSUMERS + PRODUCER_THREADS, p.g.smem, stream>>>(map, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int BN>
 int launch(const ConvParams& p, cudaStream_t stream) {
   const PlanArgs& g = p.g;
   int grid = 0, err = 0;
-  // The tile the kernel's warps are laid out for.
-  if (g.th != TILE_ROWS * (g.dense ? DENSE_MT<BN> : 1) || g.tw != TILE_COLS)
-    return static_cast<int>(cudaErrorInvalidValue);
   if (g.dense) {
+    // The tile the kernel's warps are laid out for.
+    if (g.th != TILE_ROWS * DENSE_MT<BN> || g.tw != TILE_COLS)
+      return static_cast<int>(cudaErrorInvalidValue);
     const void* fn = reinterpret_cast<const void*>(int8_conv_dense_kernel<BN>);
     if ((err = grid_of(fn, g, WG_THREADS, &grid)) != 0) return err;
     int8_conv_dense_kernel<BN><<<grid, WG_THREADS, g.smem, stream>>>(p);
     return static_cast<int>(cudaGetLastError());
   }
+  if (g.tw != TILE_COLS || (g.th != TILE_ROWS && !(TALL<BN> && g.th == 2 * TILE_ROWS)))
+    return static_cast<int>(cudaErrorInvalidValue);
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  // (C, W, H, N), or (C, W, H, D, N) when a stage spans input planes.
+  const cuuint32_t rank = g.D > 1 || g.KD > 1 ? 5 : 4;
   const cuuint64_t xb = g.x_bf16 ? 2 : 4;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(g.Cin), static_cast<cuuint64_t>(g.W),
-                              static_cast<cuuint64_t>(g.H), static_cast<cuuint64_t>(g.N)};
-  const cuuint64_t strides[3] = {dims[0] * xb, dims[0] * dims[1] * xb,
-                                 dims[0] * dims[1] * dims[2] * xb};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(g.bc), static_cast<cuuint32_t>(g.iw),
-                             static_cast<cuuint32_t>(g.ih), 1u};
-  const cuuint32_t ones[4] = {1u, 1u, 1u, 1u};
+  cuuint64_t dims[5] = {static_cast<cuuint64_t>(g.Cin), static_cast<cuuint64_t>(g.W),
+                        static_cast<cuuint64_t>(g.H), static_cast<cuuint64_t>(g.N), 1};
+  cuuint32_t box[5] = {static_cast<cuuint32_t>(g.bc), static_cast<cuuint32_t>(g.iw),
+                       static_cast<cuuint32_t>(g.ih), 1u, 1u};
+  if (rank == 5) {
+    dims[3] = static_cast<cuuint64_t>(g.D);
+    dims[4] = static_cast<cuuint64_t>(g.N);
+    box[3] = static_cast<cuuint32_t>(g.KD);
+  }
+  cuuint64_t strides[4];
+  strides[0] = dims[0] * xb;
+  for (cuuint32_t i = 1; i + 1 < rank; ++i) strides[i] = strides[i - 1] * dims[i];
+  const cuuint32_t ones[5] = {1u, 1u, 1u, 1u, 1u};
   CUtensorMap map;
   const CUresult r = encode(&map, g.x_bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                                            : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
-                            4, const_cast<void*>(p.x), dims, strides, box, ones,
+                            rank, const_cast<void*>(p.x), dims, strides, box, ones,
                             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r != CUDA_SUCCESS) return static_cast<int>(cudaErrorInvalidValue);
-  const void* fn = reinterpret_cast<const void*>(int8_conv_wgmma_kernel<BN>);
-  if ((err = grid_of(fn, g, CONSUMERS + PRODUCER_THREADS, &grid)) != 0) return err;
-  int8_conv_wgmma_kernel<BN><<<grid, CONSUMERS + PRODUCER_THREADS, g.smem, stream>>>(map, p);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (TALL<BN>) {
+    if (g.th == 2 * TILE_ROWS) return launch_tma<BN, 2>(p, map, stream);
+  }
+  return launch_tma<BN, 1>(p, map, stream);
 }
 
 }  // namespace
@@ -1062,18 +1132,20 @@ extern "C" int hst_int8_conv(const void* x, const void* w, const void* s_k, cons
   // struct's layout, the shapes, the shared memory, the stages the barriers
   // and cp.async groups count, the rings of the two warpgroups, the box
   // and int8 tile of the TMA path (the quantizer's per-thread mask holds 64
-  // pixels a thread), the dense path's aligned rows.
+  // pixels a thread) and its taps, the dense path's aligned rows (2-D,
+  // undilated).
   if (g.version != PLAN_VERSION || g.size != static_cast<int>(sizeof(PlanArgs)))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool tma = !g.dense;
   if (g.N <= 0 || g.H <= 0 || g.W <= 0 || g.Cin <= 0 || g.Cout <= 0 || (g.Cout & 7) ||
       g.KS <= 0 || g.stride <= 0 || g.smem > SMEM_MAX || g.stages < 1 ||
       g.stages > MAX_STAGES || g.rings != (tma ? RINGS : 1) || g.n_slices * g.bn < g.Cout ||
-      g.tiles <= 0 || g.w_bytes % 16 ||
+      g.tiles <= 0 || g.w_bytes % 16 || g.dil < 1 || g.D < 1 || g.KD < 1 || g.pad_f < 0 ||
       (tma && (g.Cin % 8 || g.bc <= 0 || g.bc > 32 || g.aq_pitch != PITCH ||
-               g.ih * g.iw > 64 * (WG_THREADS / 4) ||
+               g.KD * g.ih * g.iw > 64 * (WG_THREADS / 4) || g.taps != g.KD * g.KS * g.KS ||
                reinterpret_cast<uintptr_t>(x) % 16)) ||
-      (!tma && (g.cpt % 4 || g.aq_pitch != g.cpt || g.row_bytes % 16))) {
+      (!tma && (g.cpt % 4 || g.aq_pitch != g.cpt || g.row_bytes % 16 || g.dil != 1 ||
+                g.D != 1 || g.KD != 1))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   ConvParams p;
@@ -1085,7 +1157,7 @@ extern "C" int hst_int8_conv(const void* x, const void* w, const void* s_k, cons
   p.sx = static_cast<const float*>(sx);
   p.qs = static_cast<const float*>(qs);
   p.y = y;
-  p.x_bytes = static_cast<long long>(g.N) * g.H * g.W * g.Cin * (g.x_bf16 ? 2 : 4);
+  p.x_bytes = static_cast<long long>(g.N) * g.D * g.H * g.W * g.Cin * (g.x_bf16 ? 2 : 4);
   p.per_sample = per_sample;
   p.divide = divide;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

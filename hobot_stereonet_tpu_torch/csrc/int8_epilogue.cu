@@ -4,8 +4,10 @@
 // int32 result and then y = acc * (s_x[n] * s_k[c]) + bias[c] in float32
 // (hobot_stereonet_tpu/ops/quant.py:92-108), which XLA compiles into one
 // fused multiply-add.  The port's int8 kernel (int8_conv.cu) fuses that
-// epilogue; the convs it does not take run as im2col and torch._int_mm,
-// whose int32 product this kernel turns into the conv's output:
+// epilogue and takes every conv of both networks; a conv it does not take
+// runs as im2col and torch._int_mm (the route chip_smoke.py also times as
+// the yardstick of the 3-D and dilated convs), whose int32 product this
+// kernel turns into the conv's output:
 //
 //   y[m, c] = out_dtype(fmaf(float(acc[m, c]), s_x[n] * s_k[c], bias[c])),
 //   n = m / rows_per_sample

@@ -3,10 +3,11 @@
 The JAX package runs every int8 conv as an XLA convolution with an int32
 result (``hobot_stereonet_tpu/ops/quant.py``, ``_int8_conv`` and
 ``_int8_conv_static``), none of them in a Pallas kernel.  On the card the
-port runs most of them through its kernel (``csrc/int8_conv.cu``); the
-others (CLASSIC's 3-D convs, its dilated convs, and Cout 1 and 12, which
-the kernel does not take, :func:`~.kernels.int8_conv.kernel_takes`) run
-here:
+port runs every conv of both networks through its kernel
+(``csrc/int8_conv.cu``, 2-D, dilated and 3-D taps).  A shape the kernel
+does not take (:func:`~.kernels.int8_conv.kernel_takes`; neither network
+has one) runs here, and ``chip_smoke.py`` times this route as the
+yardstick of CLASSIC's 3-D and dilated convs:
 
   1. the input quantized as the kernel quantizes it
      (:func:`~.kernels.int8_conv.quantize_input`), to int8, channel-last;

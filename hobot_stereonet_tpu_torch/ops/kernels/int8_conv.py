@@ -7,12 +7,13 @@ tensors returns int8 and wraps), so the port writes it by hand:
 ``csrc/int8_conv.cu``.  :func:`int8_conv_plain` is the same function in
 plain PyTorch.
 
-The function, for an input ``x`` [N, Cin, H, W] (float32 or bfloat16,
-channels-last memory) and int8 weights ``q_w`` [Cout, Cin, kh, kw]:
+The function, for an input ``x`` [N, Cin, H, W] or [N, Cin, D, H, W]
+(float32 or bfloat16, channels-last memory) and int8 weights ``q_w``
+[Cout, Cin, kh, kw] or [Cout, Cin, kd, kh, kw]:
 
     q   = clip(rint(x / qs[n]), -127, 127)      (divide; dynamic scales)
         = clip(rint(x * qs), -127, 127)         (static: qs = float32(1/s_x))
-    acc = conv(q, q_w), flax "SAME" zero padding, int32
+    acc = conv(q, q_w), flax "SAME" zero padding, any dilation, int32
     y   = fma(float(acc), sx[n] * s_k[c], bias[c]), rounded once to out_dtype
 
 ``sx`` and ``qs`` hold one value per sample or one for all.  The static
@@ -24,7 +25,10 @@ The kernel's launch plan (:func:`plan`: the slice of output channels a
 block keeps resident, the output tile, the rings of input stages and the
 shared-memory layout) and its weight layout (:func:`pack_weight`) are
 chosen here; ``csrc/int8_conv.cu`` reads them from :class:`PlanArgs`.  The
-kernel sizes its grid from the blocks the card keeps resident.
+kernel sizes its grid from the blocks the card keeps resident.  A dilated
+conv reads a wider halo and looks its taps up ``dilation`` pixels apart; a
+3-D conv loads the ``kd`` input planes around each output plane into one
+stage and runs ``kd * kh * kw`` taps from it.
 
 NaN: the kernel's code for a NaN input is -127, as for -inf (``fmaxf``
 clips it); the plain version carries NaN through ``torch.clamp`` into every
@@ -36,6 +40,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import math
 
 import torch
 import torch.nn.functional as F
@@ -59,8 +64,12 @@ N_SINGLE = (8, 16, 24, 32, 48, 64)   # wgmma N of a slice of at most 64 channels
 N_WIDE = 64                   # wgmma N of each instruction of a wider slice
 N_MAX = 192                   # widest slice of output channels resident in a block
 EPI_CHANNELS = 64             # channels of one epilogue pass through shared memory
-PLAN_VERSION = 2              # struct PlanArgs of csrc/int8_conv.cu checks it
+PLAN_VERSION = 3              # struct PlanArgs of csrc/int8_conv.cu checks it
 DENSE_CIN = (3, 4)            # Cin the dense path is routed at (bit-equal on the card at each)
+MAX_DILATION = 8              # the widest dilation the kernel is routed at (CLASSIC's)
+TALL_BN = (8, 16, 32)         # slices the TMA path is built for with two wgmma tiles a warp
+MAX_PIXELS = 64 * 32          # halo pixels of a stage: the quantizer's per-thread mask holds 64
+BOX_MAX = 256                 # a TMA box's extent along one axis
 
 
 def same_pads(size: int, kernel: int, stride: int, dilation: int = 1):
@@ -99,10 +108,11 @@ def channels_per_tap(cin: int) -> int:
 
 
 def pack_weight(q_w: torch.Tensor) -> torch.Tensor:
-    """int8 [Cout, Cin, kh, kw] -> the kernel's weight layout.
+    """int8 [Cout, Cin, kh, kw] or [Cout, Cin, kd, kh, kw] -> the kernel's
+    weight layout.
 
     The reduction index of a row is k = tap * channels_per_tap(Cin) +
-    channel (taps in (kh, kw) order), zero padded to K_pad, a multiple of
+    channel (taps in (kd, kh, kw) order), zero padded to K_pad, a multiple of
     32.  Rows are padded with zeros to ``slices * BN``
     (:func:`output_slices`).  The result is
     [slices, K_pad / 32, BN / 8, 2, 8, 16]: for each slice of BN output
@@ -113,18 +123,18 @@ def pack_weight(q_w: torch.Tensor) -> torch.Tensor:
     (its stride byte offset).  A slice is one contiguous block that a
     bulk copy places in shared memory as it is.
     """
-    cout, cin, kh, kw = q_w.shape
+    cout, cin = q_w.shape[:2]
     cpt = channels_per_tap(cin)
     bn, slices = output_slices(cout)
-    w = F.pad(q_w.permute(0, 2, 3, 1), (0, cpt - cin)).reshape(cout, kh * kw * cpt)
+    w = F.pad(q_w.permute(0, *range(2, q_w.dim()), 1), (0, cpt - cin)).reshape(cout, -1)
     k_pad = _up(w.shape[1], 32)
     w = F.pad(w, (0, k_pad - w.shape[1], 0, slices * bn - cout))
     return w.reshape(slices, bn // 8, 8, k_pad // 32, 2, 16).permute(0, 3, 1, 4, 2, 5).contiguous()
 
 
-def packed_shape(cout: int, cin: int, kh: int, kw: int):
+def packed_shape(cout: int, cin: int, *kernel: int):
     bn, slices = output_slices(cout)
-    return (slices, _up(kh * kw * channels_per_tap(cin), 32) // 32, bn // 8, 2, 8, 16)
+    return (slices, _up(math.prod(kernel) * channels_per_tap(cin), 32) // 32, bn // 8, 2, 8, 16)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,6 +158,17 @@ class Plan:
     slice's ``s_k`` and bias (at ``off_par``) and each tap's (or, on the
     dense path, each k-step lane's) offset into the int8 tile (at
     ``off_tab``) are staged in shared memory once per block.
+
+    On the TMA path a tile is ``th`` = 4 or 8 rows (one or two wgmma tiles
+    of 64 pixels a warpgroup, :func:`tile_rows`).  A dilated conv
+    (``dil`` > 1) reads an ``ih`` x ``iw`` halo of ``(th - 1) * stride +
+    (KS - 1) * dil + 1`` rows and columns and finds tap (r, s) at row
+    ``r * dil``, column ``s * dil``.  A 3-D conv walks the tiles of each
+    of the ``D`` planes of each sample (``tiles`` = N * D * tiles_h *
+    tiles_w) and loads the ``KD`` planes from ``d - pad_f`` into one stage
+    (a 5-D TMA box, zero past the depth edges), so a stage and its int8
+    tile hold ``KD * ih`` rows and a tap (kd, r, s) lies at row ``kd * ih
+    + r``.  A 2-D conv has ``D`` = ``KD`` = 1.
     """
     N: int
     H: int
@@ -194,6 +215,10 @@ class Plan:
     tiles_h: int
     tiles_w: int
     tiles: int
+    dil: int
+    D: int
+    KD: int
+    pad_f: int
 
     def args(self) -> "PlanArgs":
         return PlanArgs(PLAN_VERSION, ctypes.sizeof(PlanArgs), *dataclasses.astuple(self))
@@ -207,24 +232,51 @@ class PlanArgs(ctypes.Structure):
         (f.name, ctypes.c_int) for f in dataclasses.fields(Plan)]
 
 
+def tile_rows(dense: bool, bn: int, dilation: int, depth: int) -> int:
+    """The output rows of a tile: on the dense path two wgmma tiles of 4
+    rows for slices of up to 32 channels; on the TMA path one, except for
+    the dilated convs at the slices :data:`TALL_BN`, which take two so
+    that their wider halo is read for twice the rows."""
+    if dense:
+        return TILE_ROWS * (2 if bn <= 32 else 1)
+    return TILE_ROWS * (2 if dilation > 1 and bn in TALL_BN else 1)
+
+
 @functools.lru_cache(maxsize=256)
 def plan(n: int, cin: int, h: int, w: int, cout: int, k: int, stride: int,
-         x_dtype: torch.dtype, out_dtype: torch.dtype) -> Plan:
-    """The launch plan of one conv shape.
+         x_dtype: torch.dtype, out_dtype: torch.dtype, dilation: int = 1, depth: int = 0,
+         rows: "int | None" = None) -> Plan:
+    """The launch plan of one conv shape: a 2-D conv of a k x k kernel
+    (``depth`` = 0) or a 3-D conv of a k x k x k kernel over ``depth``
+    input planes; ``rows`` sets the tile's height (default
+    :func:`tile_rows`; 4 or, at :data:`TALL_BN`, 8 on the TMA path).
 
-    Raises ``ValueError`` if the rings the kernel needs do not fit in
+    Raises ``ValueError`` for a shape the kernel does not run: dilation or
+    3-D taps other than at stride 1 on the TMA path, a halo wider than a
+    TMA box or the quantizer's mask, or rings that do not fit in
     :data:`SMEM_MAX`.
     """
     xb = 2 if x_dtype == torch.bfloat16 else 4
     yb = 2 if out_dtype == torch.bfloat16 else 4
     ho, wo = -(-h // stride), -(-w // stride)
     dense = dense_input(cin)
+    shape = (f"Cin {cin}, Cout {cout}, {k}x{k}{f'x{k}' if depth else ''} stride {stride} "
+             f"dilation {dilation}, {x_dtype}")
+    if (dilation > 1 or depth) and (dense or stride != 1):
+        raise ValueError(f"{NAME}: dilated and 3-D convs run at stride 1 with Cin a multiple "
+                         f"of 8 only, got {shape}")
     cpt = channels_per_tap(cin)
-    taps = k * k
+    kd = k if depth else 1
+    taps = kd * k * k
     k_blocks = _up(taps * cpt, 32) // 32
     bn, n_slices = output_slices(cout)
-    th, tw = TILE_ROWS * (2 if dense and bn <= 32 else 1), TILE_COLS
-    ih, iw = (th - 1) * stride + k, (tw - 1) * stride + k
+    th, tw = rows or tile_rows(dense, bn, dilation, depth), TILE_COLS
+    built = {tile_rows(dense, bn, 1, 0)} | ({2 * TILE_ROWS} if not dense and bn in TALL_BN else set())
+    if th not in built:
+        raise ValueError(f"{NAME}: no tile of {th} rows for {shape}")
+    ih, iw = (th - 1) * stride + (k - 1) * dilation + 1, (tw - 1) * stride + (k - 1) * dilation + 1
+    if not dense and (max(ih, iw) > BOX_MAX or kd * ih * iw > MAX_PIXELS):
+        raise ValueError(f"{NAME}: a halo of {kd} x {ih} x {iw} pixels is too large for {shape}")
     iwh = -(-iw // stride)
     aw = stride * iwh
     if dense:
@@ -233,8 +285,8 @@ def plan(n: int, cin: int, h: int, w: int, cout: int, k: int, stride: int,
     else:
         bc, slices, aq_pitch, rings = min(32, cin), cpt // 32, PITCH, 2
         row_bytes = iw * bc * xb
-    stage_bytes = _up(ih * row_bytes, 128)
-    aq_bytes = _up(ih * aw * aq_pitch, 128)
+    stage_bytes = _up(kd * ih * row_bytes, 128)
+    aq_bytes = _up(kd * ih * aw * aq_pitch, 128)
     epi_pitch = min(bn, EPI_CHANNELS) * yb + 16
     w_bytes = k_blocks * bn * 32
     off_stage = _up(w_bytes, 128)
@@ -252,8 +304,7 @@ def plan(n: int, cin: int, h: int, w: int, cout: int, k: int, stride: int,
     if rings * stages < 2:
         stages = min(MAX_STAGES, (SMEM_MAX - fixed) // (rings * stage_bytes))
     if stages < 1:
-        raise ValueError(f"{NAME}: no plan fits {SMEM_MAX} bytes of shared memory for "
-                         f"Cin {cin}, Cout {cout}, {k}x{k} stride {stride}, {x_dtype}")
+        raise ValueError(f"{NAME}: no plan fits {SMEM_MAX} bytes of shared memory for {shape}")
     off_aq = off_stage + rings * stages * stage_bytes
     off_epi = off_aq + 2 * aq_bytes
     off_par = off_epi + warps * 16 * epi_pitch      # the slice's s_k, then its bias
@@ -261,12 +312,13 @@ def plan(n: int, cin: int, h: int, w: int, cout: int, k: int, stride: int,
     off_bar = _up(off_tab + 4 * n_tab, 8)
     smem = off_bar + 8 * (2 * rings * stages + 1)
     tiles_h, tiles_w = -(-ho // th), -(-wo // tw)
-    pt, pl = same_pads(h, k, stride)[0], same_pads(w, k, stride)[0]
+    pt, pl = same_pads(h, k, stride, dilation)[0], same_pads(w, k, stride, dilation)[0]
+    pf = same_pads(depth, k, stride)[0] if depth else 0
     return Plan(n, h, w, cin, ho, wo, cout, k, stride, pt, pl, int(xb == 2), int(yb == 2),
                 int(dense), bn, n_slices, cpt, slices, k_blocks, taps, th, tw, ih, iw, iwh, aw,
                 bc, rings, stages, stage_bytes, row_bytes, aq_pitch, aq_bytes, epi_pitch,
                 w_bytes, off_stage, off_aq, off_epi, off_par, off_tab, off_bar, smem, tiles_h,
-                tiles_w, n * tiles_h * tiles_w)
+                tiles_w, n * max(depth, 1) * tiles_h * tiles_w, dilation, max(depth, 1), kd, pf)
 
 
 @functools.lru_cache(maxsize=256)
@@ -398,22 +450,43 @@ def int8_conv_plain(x: torch.Tensor, q_w: torch.Tensor, s_k: torch.Tensor,
     return y.contiguous(memory_format=memory_format(x.dim()))
 
 
-def kernel_takes(cin: int, cout: int, kernel, stride: int, dilation: int) -> bool:
-    """Whether :func:`int8_conv` runs this conv on the card: a square 2-D
-    undilated kernel at stride 1 or 2, Cout a multiple of 8, and Cin a
-    multiple of 8 (the TMA path) or one of :data:`DENSE_CIN` (the dense
-    path, checked bit for bit on the card at each)."""
-    return (len(kernel) == 2 and kernel[0] == kernel[1] and dilation == 1
-            and stride in (1, 2) and cout % 8 == 0 and (cin % 8 == 0 or cin in DENSE_CIN))
+def kernel_takes(cin: int, cout: int, kernel, stride: int, dilation: int,
+                 x_dtype: torch.dtype = torch.bfloat16) -> bool:
+    """Whether :func:`int8_conv` runs this conv on the card: Cout a multiple
+    of 8, and either a square 2-D undilated kernel at stride 1 or 2 with
+    Cin a multiple of 8 (the TMA path) or one of :data:`DENSE_CIN` (the
+    dense path, checked bit for bit on the card at each), or, at stride 1
+    with Cin a multiple of 8, a 3x3 kernel at a dilation up to
+    :data:`MAX_DILATION` or an undilated 3x3x3 kernel; and a :func:`plan`
+    for an ``x_dtype`` input fits in shared memory (its size does not
+    depend on the batch or the image; a 32-channel conv at dilation 8 in
+    float32 does not fit)."""
+    kernel = tuple(kernel)
+    if cout % 8:
+        return False
+    if kernel == (3, 3, 3) or (kernel == (3, 3) and dilation > 1):
+        if stride != 1 or cin % 8 or dilation > (1 if len(kernel) == 3 else MAX_DILATION):
+            return False
+    elif not (len(kernel) == 2 and kernel[0] == kernel[1] and dilation == 1
+              and stride in (1, 2) and (cin % 8 == 0 or cin in DENSE_CIN)):
+        return False
+    try:
+        plan(1, cin, 16, 16, cout, kernel[0], stride, x_dtype, x_dtype, dilation,
+             16 if len(kernel) == 3 else 0)
+    except ValueError:
+        return False
+    return True
 
 
-def padded_channels(cin: int, cout: int):
+def padded_channels(cin: int, cout: int, kernel=(3, 3), dilation: int = 1):
     """(Cin, Cout) at which the kernel runs a conv zero padded to its
     channels: Cout up to a multiple of 8, and Cin up to a multiple of 8
-    unless it is one of :data:`DENSE_CIN`.  Zero weights and zero input
-    channels add nothing to the integer sums, and the padded outputs are
-    dropped, so the conv's result is unchanged."""
-    return (cin if cin % 8 == 0 or cin in DENSE_CIN else _up(cin, 8)), _up(cout, 8)
+    unless it is one of :data:`DENSE_CIN` and the conv is an undilated 2-D
+    one (the dense path's).  Zero weights and zero input channels add
+    nothing to the integer sums, and the padded outputs are dropped, so the
+    conv's result is unchanged."""
+    dense_ok = len(kernel) == 2 and dilation == 1 and cin in DENSE_CIN
+    return (cin if cin % 8 == 0 or dense_ok else _up(cin, 8)), _up(cout, 8)
 
 
 def int8_conv(x: torch.Tensor, q_w: torch.Tensor, packed: torch.Tensor, s_k: torch.Tensor,
@@ -421,7 +494,8 @@ def int8_conv(x: torch.Tensor, q_w: torch.Tensor, packed: torch.Tensor, s_k: tor
               stride: int, divide: bool, out_dtype: torch.dtype,
               dilation: int = 1) -> torch.Tensor:
     """The w8a8 conv: the kernel of ``csrc/int8_conv.cu`` for CUDA tensors
-    (undilated 2-D convs), :func:`int8_conv_plain` for CPU tensors.
+    (the convs :func:`kernel_takes`), :func:`int8_conv_plain` for CPU
+    tensors.
     ``packed`` is :func:`pack_weight` of ``q_w`` (the plain version does
     not read it); ``x`` must be channels-last.  The custom op
     ``hst::int8_conv``; devices other than these two raise."""
@@ -454,21 +528,20 @@ def _int8_conv_cuda(x: torch.Tensor, q_w: torch.Tensor, packed: torch.Tensor,
                     stride: int, dilation: int, divide: bool,
                     out_dtype: torch.dtype) -> torch.Tensor:
     _check(x, q_w, s_k, bias, sx, qs, out_dtype)
-    if dilation != 1:
-        raise ValueError(f"{NAME}: undilated convs only on the card, got dilation {dilation}")
-    if x.dim() != 4:
-        raise ValueError(f"{NAME}: 2-D convs only on the card, got {tuple(q_w.shape)}")
-    n, cin, h, w = x.shape
-    cout, _, kh, kw = q_w.shape
-    if kh != kw or stride not in (1, 2):
-        raise ValueError(f"{NAME}: square kernels at stride 1 or 2 only, got "
-                         f"{kh}x{kw} stride {stride}")
-    if packed.dtype != torch.int8 or tuple(packed.shape) != packed_shape(cout, cin, kh, kw):
+    n, cin = x.shape[:2]
+    cout, kernel = q_w.shape[0], tuple(q_w.shape[2:])
+    k = kernel[0]
+    if any(v != k for v in kernel) or stride not in (1, 2):
+        raise ValueError(f"{NAME}: square or cubic kernels at stride 1 or 2 only, got "
+                         f"{'x'.join(map(str, kernel))} stride {stride}")
+    if not 1 <= dilation <= MAX_DILATION:
+        raise ValueError(f"{NAME}: dilation 1 to {MAX_DILATION} only, got {dilation}")
+    if packed.dtype != torch.int8 or tuple(packed.shape) != packed_shape(cout, cin, *kernel):
         raise ValueError(f"{NAME}: packed weights {tuple(packed.shape)} {packed.dtype} "
                          f"are not pack_weight of {tuple(q_w.shape)}")
     if cout % 8:
         raise ValueError(f"{NAME}: Cout must be a multiple of 8, got {cout}")
-    if not x.is_contiguous(memory_format=torch.channels_last):
+    if not x.is_contiguous(memory_format=memory_format(x.dim())):
         raise ValueError(f"{NAME}: the input must be channels-last contiguous")
     if not dense_input(cin) and x.data_ptr() % 16:
         raise ValueError(f"{NAME}: the input must be 16-byte aligned")
@@ -476,9 +549,18 @@ def _int8_conv_cuda(x: torch.Tensor, q_w: torch.Tensor, packed: torch.Tensor,
     if any(t.device != x.device for t in tensors) or not all(
             t.is_contiguous() for t in tensors[1:]):
         raise ValueError(f"{NAME}: every tensor must be contiguous on {x.device}")
-    args = _plan_args(n, cin, h, w, cout, kh, stride, x.dtype, out_dtype)
-    out = torch.empty((n, args.Ho, args.Wo, cout), dtype=out_dtype,
-                      device=x.device).permute(0, 3, 1, 2)
+    depth = x.shape[2] if x.dim() == 5 else 0          # plan() raises for what it cannot run
+    args = _plan_args(n, cin, *x.shape[-2:], cout, k, stride, x.dtype, out_dtype, dilation, depth)
+    return _launch(x, packed, s_k, bias, sx, qs, divide, out_dtype, args)
+
+
+def _launch(x: torch.Tensor, packed: torch.Tensor, s_k: torch.Tensor, bias: torch.Tensor,
+            sx: torch.Tensor, qs: torch.Tensor, divide: bool, out_dtype: torch.dtype,
+            args: PlanArgs) -> torch.Tensor:
+    """One launch of the kernel on checked operands under the plan ``args``
+    (``plan(...).args()``; its tile height may differ from the default)."""
+    out = torch.empty((args.N, *x.shape[2:-2], args.Ho, args.Wo, args.Cout), dtype=out_dtype,
+                      device=x.device).movedim(-1, 1)
     err = build.library().hst_int8_conv(
         x.data_ptr(), packed.data_ptr(), s_k.data_ptr(), bias.data_ptr(), sx.data_ptr(),
         qs.data_ptr(), out.data_ptr(), ctypes.addressof(args), int(sx.numel() != 1), int(divide),

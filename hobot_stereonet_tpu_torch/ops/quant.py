@@ -4,9 +4,9 @@ Counterpart of ``hobot_stereonet_tpu/ops/quant.py``.  Weights are
 quantized symmetrically per output channel, activations per sample, and
 every ``SameConv2d`` and ``SameConv3d`` runs as :class:`Int8Conv`: on the
 card through the kernel of ``ops/kernels/int8_conv.py`` where it takes the
-conv's shape (zero padded to its channels where needed), else through the
-exact library product of ``ops/int8_gemm.py`` (CLASSIC's 3-D and dilated
-convs);
+conv's shape (zero padded to its channels where needed: every conv of both
+networks, CLASSIC's 3-D and dilated ones included), else through the
+exact library product of ``ops/int8_gemm.py``;
 GroupNorm, the activations, the correlation and the soft-argmin stay in
 floating point.
 
@@ -130,8 +130,9 @@ class Int8Conv(nn.Module):
     (:func:`~.kernels.int8_conv.kernel_takes`), zero padded to the channels
     it takes where needed (:func:`~.kernels.int8_conv.padded_channels`:
     CLASSIC's Cout 1 and 12 and Cin 12), else the exact library product of
-    ``ops/int8_gemm.py`` (``"library"``: the 3-D and the dilated convs).
-    On the CPU both are the kernel's plain version.
+    ``ops/int8_gemm.py`` (``"library"``: a shape neither network has).  A
+    shape routed to the kernel that it cannot plan raises; nothing falls
+    back.  On the CPU both are the kernel's plain version.
     """
 
     def __init__(self, conv: "SameConv2d | SameConv3d", out_dtype: torch.dtype,
@@ -142,9 +143,11 @@ class Int8Conv(nn.Module):
         self.dilation = conv.dilation[0]
         self.out_dtype = out_dtype
         cout, cin = q.shape[:2]
-        self.channels = k8.padded_channels(cin, cout)      # what the kernel runs at
+        # what the kernel runs at
+        self.channels = k8.padded_channels(cin, cout, q.shape[2:], self.dilation)
+        # The networks hand each conv its input in the compute dtype.
         self.route = "kernel" if k8.kernel_takes(*self.channels, q.shape[2:], self.stride,
-                                                 self.dilation) else "library"
+                                                 self.dilation, out_dtype) else "library"
         bias = conv.bias.detach().float().clone()
         self.register_buffer("q_weight", q)
         self.register_buffer("weight_scale", s)
@@ -152,7 +155,7 @@ class Int8Conv(nn.Module):
         if self.route == "kernel":
             # The weights, scales and biases the kernel runs, zero padded.
             pc, po = self.channels[0] - cin, self.channels[1] - cout
-            q = F.pad(q, (0, 0, 0, 0, 0, pc, 0, po))
+            q = F.pad(q, (0, 0) * (q.dim() - 2) + (0, pc, 0, po))
             self.register_buffer("card_weight", q)
             self.register_buffer("card_scale", F.pad(s, (0, po)))
             self.register_buffer("card_bias", F.pad(bias, (0, po)))
@@ -199,14 +202,13 @@ class Int8Conv(nn.Module):
                                               dilation=self.dilation, **kw)
         cin, cout = x.shape[1], self.q_weight.shape[0]
         if self.channels[0] != cin:                         # zero input channels
-            n, _, h, w = x.shape
-            padded = x.new_zeros((n, h, w, self.channels[0])).permute(0, 3, 1, 2)
+            padded = x.new_zeros((x.shape[0], *x.shape[2:], self.channels[0])).movedim(-1, 1)
             padded[:, :cin] = x
             x = padded
         y = k8.int8_conv(x, self.card_weight, self.packed_weight, self.card_scale,
-                         self.card_bias, sx, qs, **kw)
+                         self.card_bias, sx, qs, dilation=self.dilation, **kw)
         if self.channels[1] != cout:                        # drop the padded outputs
-            y = y[:, :cout].contiguous(memory_format=torch.channels_last)
+            y = y[:, :cout].contiguous(memory_format=k8.memory_format(y.dim()))
         return y
 
 

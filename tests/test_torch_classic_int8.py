@@ -5,9 +5,11 @@ and the CLASSIC int8 reference data the port carries
 
 Bit for bit: one conv of each kind CLASSIC has (3-D 32->32 and 32->1,
 dilations 2, 4 and 8, Cout 1 and 12, Cin 4 and 12), fed JAX's own input, in
-both schemes and in float32 and bf16 compute; the library route
-(im2col and ``torch._int_mm``) against the plain version at the same
-convs; a frame alone against the same frame in a batch.
+both schemes and in float32 and bf16 compute; the card's call (the int8
+kernel's wrapper, zero padded where the kernel needs it; on the CPU its
+plain version) and the library route (im2col and ``torch._int_mm``, the
+yardstick the card times the kernel against) against the plain version at
+the same convs; a frame alone against the same frame in a batch.
 
 With tolerances:
   * a small CLASSIC in int8 against ``quantized_apply`` and
@@ -171,7 +173,7 @@ def write_committed_data() -> None:
 # ---------------------------------------------------------------------------
 
 # (label, Cin, Cout, kernel, spatial axes, dilation, stride): one conv of
-# each kind CLASSIC has, with the route the card takes for it.
+# each kind CLASSIC has; the card runs every kind through the int8 kernel.
 CONV_KINDS = [
     ("3d-32-32", 32, 32, 3, 3, 1, 1),
     ("3d-32-1", 32, 1, 3, 3, 1, 1),
@@ -267,9 +269,10 @@ def test_classic_conv_kind_bit_equal_to_jax(rng, kind, dtype, static):
 @pytest.mark.parametrize("static", [False, True], ids=["dynamic", "static"])
 @pytest.mark.parametrize("kind", KIND_IDS)
 def test_library_route_equals_plain_version(rng, kind, static):
-    """The card's library route (im2col, ``torch._int_mm`` and the kernel's
-    epilogue), run on the CPU, equals the plain version bit for bit, in
-    bf16 and float32 out; the route each kind takes on the card."""
+    """The library route (im2col, ``torch._int_mm`` and the kernel's
+    epilogue; the card's yardstick for the kernel, no network's route),
+    run on the CPU, equals the plain version bit for bit, in bf16 and
+    float32 out; every kind takes the kernel on the card."""
     from hobot_stereonet_tpu_torch.ops import int8_gemm
     from hobot_stereonet_tpu_torch.ops.kernels import int8_conv as k8
 
@@ -277,7 +280,7 @@ def test_library_route_equals_plain_version(rng, kind, static):
     x, kernel, bias = _conv_case(rng, cin, cout, k, nsp, dilation)
     mod = _port_conv(kernel, bias, nsp, dilation, stride, torch.bfloat16,
                      S_X if static else None)
-    assert mod.route == ("kernel" if nsp == 2 and dilation == 1 else "library")
+    assert mod.route == "kernel"
     xt = torch.from_numpy(x).bfloat16().movedim(-1, 1)
     sx = mod.act_scale if static else torch.from_numpy(
         rng.uniform(0.01, 0.05, x.shape[0]).astype(np.float32))
@@ -315,6 +318,40 @@ def test_padded_kernel_route_equals_plain_version(rng, kind, static):
                               stride=stride, divide=not static, out_dtype=torch.bfloat16)
     got = mod.on_card(xt, sx, qs, divide=not static)
     assert got.shape == want.shape and got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, want), kind
+
+
+@pytest.mark.parametrize("static", [False, True], ids=["dynamic", "static"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["3d-32-32", "3d-32-1", "dilation2-32", "dilation4-16",
+                                  "dilation8-32", "dilation2-12"])
+def test_kernel_route_takes_the_3d_and_dilated_kinds(rng, kind, dtype, static):
+    """The 3-D and dilated convs on the card's route (``Int8Conv.on_card``,
+    Cout 1 and Cin / Cout 12 zero padded to 8 and 16; on the CPU the
+    kernel's wrapper runs its plain version on the padded operands): the
+    plain conv of the unpadded weights bit for bit, channels-last (3-D:
+    ``channels_last_3d``) and unpadded, in float32 and bf16 compute."""
+    from hobot_stereonet_tpu_torch.ops.kernels import build
+    from hobot_stereonet_tpu_torch.ops.kernels import int8_conv as k8
+
+    _, cin, cout, k, nsp, dilation, stride = next(c for c in CONV_KINDS if c[0] == kind)
+    tdt = getattr(torch, dtype)
+    x, kernel, bias = _conv_case(rng, cin, cout, k, nsp, dilation)
+    mod = _port_conv(kernel, bias, nsp, dilation, stride, tdt, S_X if static else None)
+    takes = not (dtype == "float32" and kind == "dilation8-32")   # no float32 plan fits
+    assert mod.route == ("kernel" if takes else "library")
+    assert mod.channels == k8.padded_channels(cin, cout)
+    xt = torch.from_numpy(x).to(tdt).movedim(-1, 1).contiguous(
+        memory_format=k8.memory_format(nsp + 2))
+    sx = mod.act_scale if static else torch.from_numpy(
+        rng.uniform(0.01, 0.05, x.shape[0]).astype(np.float32))
+    qs = mod.act_mult if static else sx
+    want = k8.int8_conv_plain(xt, mod.q_weight, mod.weight_scale, mod.bias, sx, qs,
+                              stride=stride, dilation=dilation, divide=not static, out_dtype=tdt)
+    build.reset_launch_counts()
+    got = mod.on_card(xt, sx, qs, divide=not static)
+    assert sum(build.launch_counts.values()) == 0            # the plain versions on the CPU
+    assert got.shape == want.shape and got.is_contiguous(memory_format=k8.memory_format(nsp + 2))
     assert torch.equal(got, want), kind
 
 
@@ -517,9 +554,9 @@ def calib():
 
 def test_quantize_model_takes_every_classic_conv(calib):
     """All 53 CLASSIC convs are swapped, keyed as ``classic_calib.json`` and
-    JAX's calibration key them, all static with it; 32 take the kernel on
-    the card (six of them zero padded: Cout 1 and 12, Cin 12) and 21 the
-    library route (the 3-D convs and the dilated ones)."""
+    JAX's calibration key them, all static with it; all 53 take the kernel
+    on the card (the 3-D and the dilated convs included; eleven of them zero
+    padded: Cout 1 and 12, Cin 12), none the library route."""
     from hobot_stereonet_tpu_torch.config import StereoNetConfig
     from hobot_stereonet_tpu_torch.models import StereoNet
     from hobot_stereonet_tpu_torch.models.layers import SameConv2d, SameConv3d
@@ -535,8 +572,9 @@ def test_quantize_model_takes_every_classic_conv(calib):
     assert sorted(mods) == keys and all(m.static for m in mods.values())
     routes = tq.routes(net)
     library = sorted(k for k, r in routes.items() if r == "library")
-    assert len(library) == 21 and len(routes) - len(library) == 32
-    assert all(k.startswith(("CostAggregation_0", "RefinementNet_")) for k in library)
+    assert len(library) == 0 and len(routes) - len(library) == 53
+    assert sum(m.dilation > 1 or m.q_weight.dim() == 5 for m in mods.values()) == 21
+    assert sum(m.channels != tuple(m.q_weight.shape[1::-1]) for m in mods.values()) == 11
     for key, m in mods.items():
         assert m.act_scale.item() == np.float32(calib[key])
 

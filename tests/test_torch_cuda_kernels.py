@@ -501,6 +501,61 @@ def test_int8_conv_kernel_edges(device, n, cin, cout, k, stride, h, w, x_dtype, 
     assert torch.equal(got, want), (got.float() - want.float()).abs().max().item()
 
 
+@pytest.mark.parametrize("static", [False, True])
+@pytest.mark.parametrize("n,cin,cout,depth,h,w,dilation,rows,x_dtype", [
+    (2, 32, 32, 0, 45, 37, 2, None, torch.bfloat16),     # 8-row tiles, ragged
+    (2, 32, 32, 0, 45, 37, 2, 4, torch.bfloat16),        # 4-row tiles
+    (2, 16, 16, 0, 30, 70, 4, None, torch.float32),      # 16-channel box
+    (2, 32, 32, 0, 19, 35, 8, None, torch.bfloat16),     # SAME pads of 8 on every side
+    (2, 32, 32, 0, 19, 35, 8, 4, torch.bfloat16),
+    (3, 16, 8, 0, 9, 20, 8, None, torch.bfloat16),       # the narrowest slice, halo > image
+    (2, 64, 24, 0, 12, 20, 4, None, torch.bfloat16),     # two channel slices, 4-row tiles
+    (2, 32, 32, 3, 6, 17, 1, None, torch.bfloat16),      # 3-D, both depth edges a tile
+    (2, 32, 8, 5, 9, 18, 1, None, torch.bfloat16),       # 3-D, Cout 8
+    (2, 32, 32, 1, 6, 17, 1, None, torch.bfloat16),      # 3-D, one plane: two zero planes
+    (3, 16, 16, 4, 10, 33, 1, None, torch.float32),      # 3-D, Cin 16, float32
+    (2, 32, 16, 4, 10, 9, 1, 8, torch.bfloat16),         # 3-D, 8-row tiles
+    (2, 8, 8, 3, 7, 21, 1, None, torch.bfloat16),        # 3-D, an 8-channel box
+    (2, 8, 8, 0, 13, 21, 2, None, torch.bfloat16),       # dilated, an 8-channel box
+])
+def test_int8_conv_kernel_dilated_and_3d(device, n, cin, cout, depth, h, w, dilation, rows,
+                                         x_dtype, static):
+    """The kernel's dilated and 3-D taps against the plain version, bit for
+    bit: wide halos past every edge, the depth edges' zero planes, both
+    tile heights (``rows``: a plan other than the default, launched as the
+    wrapper launches it)."""
+    from hobot_stereonet_tpu_torch.ops.kernels import int8_conv as k8
+
+    rng = np.random.default_rng(7 + depth + dilation)
+    spatial = ((depth,) if depth else ()) + (h, w)
+    kernel = (3,) * len(spatial)
+    x = torch.from_numpy((2.0 * rng.standard_normal((n,) + spatial + (cin,))).astype(np.float32))
+    x = x.to(x_dtype).to(device).movedim(-1, 1)
+    q_w = torch.from_numpy(rng.integers(-127, 128, (cout, cin) + kernel, dtype=np.int8)).to(device)
+    s_k = torch.from_numpy(rng.uniform(1e-4, 1e-2, cout).astype(np.float32)).to(device)
+    bias = torch.from_numpy(rng.standard_normal(cout).astype(np.float32)).to(device)
+    if static:
+        sx = torch.tensor([0.05], device=device)
+        qs = torch.tensor([1.0], device=device) / sx
+    else:
+        sx = qs = torch.from_numpy(rng.uniform(0.01, 0.05, n).astype(np.float32)).to(device)
+    kw = dict(stride=1, dilation=dilation, divide=not static, out_dtype=torch.bfloat16)
+    packed = pack_weight(q_w)
+    n0 = build.launch_counts["int8_conv"]
+    if rows is None:
+        got = int8_conv(x, q_w, packed, s_k, bias, sx, qs, **kw)
+    else:
+        args = k8.plan(n, cin, h, w, cout, 3, 1, x_dtype, torch.bfloat16, dilation, depth,
+                       rows).args()
+        got = k8._launch(x, packed, s_k, bias, sx, qs, not static, torch.bfloat16, args)
+    torch.cuda.synchronize()
+    assert build.launch_counts["int8_conv"] == n0 + 1
+    want = int8_conv_plain(x, q_w, s_k, bias, sx, qs, **kw)
+    assert got.shape == want.shape == (n, cout) + spatial
+    assert got.is_contiguous(memory_format=k8.memory_format(x.dim()))
+    assert torch.equal(got, want), (got.float() - want.float()).abs().max().item()
+
+
 @pytest.mark.parametrize("cin,cout,k,stride", [(64, 64, 3, 1), (32, 32, 5, 2), (56, 576, 3, 1)])
 def test_int8_conv_kernel_large_accumulators(device, cin, cout, k, stride):
     """Every code at +-127 against weights of +-127: accumulators past 2^22,
@@ -850,8 +905,9 @@ def test_group_norm_fused_gradients_on_the_card(device, dtype, skip):
                                    atol=tol)
 
 
-# CLASSIC's convs that the int8 kernel does not take, at their 720p shapes with
-# a chunk of 2 frames: (N, Cin, Cout, kernel, dilation, spatial); a 3-D conv
+# CLASSIC's convs that took the library route before the int8 kernel took
+# dilated and 3-D taps and zero padded channels, at their 720p shapes with a
+# chunk of 2 frames: (N, Cin, Cout, kernel, dilation, spatial); a 3-D conv
 # where the spatial shape has three axes.
 CLASSIC_LIBRARY_SHAPES = [
     (2, 32, 32, 3, 1, (24, 90, 160)), (2, 32, 1, 3, 1, (24, 90, 160)),
@@ -868,15 +924,18 @@ CLASSIC_LIBRARY_SHAPES = [
 @pytest.mark.parametrize("n,cin,cout,k,dilation,spatial", CLASSIC_LIBRARY_SHAPES)
 def test_int8_library_route_exact_at_classic_shapes(device, n, cin, cout, k, dilation, spatial,
                                                     static):
-    """The library route (im2col, ``torch._int_mm``, the kernel's epilogue)
-    equals the plain version bit for bit at every CLASSIC conv shape the
-    kernel does not take."""
+    """The library route (im2col, ``torch._int_mm``, the kernel's epilogue;
+    the yardstick ``chip_smoke.py`` times the kernel against, no network's
+    route) equals the plain version bit for bit at every CLASSIC conv
+    shape it once served; the kernel takes each of them, zero padded to
+    its channels."""
     from hobot_stereonet_tpu_torch.ops import int8_gemm
-    from hobot_stereonet_tpu_torch.ops.kernels.int8_conv import kernel_takes, memory_format
+    from hobot_stereonet_tpu_torch.ops.kernels.int8_conv import (
+        kernel_takes, memory_format, padded_channels)
 
     rng = np.random.default_rng(9)
     kernel = (k,) * len(spatial)
-    assert not kernel_takes(cin, cout, kernel, 1, dilation)
+    assert kernel_takes(*padded_channels(cin, cout), kernel, 1, dilation)
     x = torch.from_numpy((2.0 * rng.standard_normal((n,) + spatial + (cin,))).astype(np.float32))
     x = x.bfloat16().to(device).movedim(-1, 1)
     assert x.is_contiguous(memory_format=memory_format(x.dim()))
@@ -897,6 +956,40 @@ def test_int8_library_route_exact_at_classic_shapes(device, n, cin, cout, k, dil
     want = int8_conv_plain(x, q_w, s_k, bias, sx, qs, **kw)
     assert got.shape == want.shape == (n, cout) + spatial
     assert got.is_contiguous(memory_format=memory_format(got.dim()))
+    assert torch.equal(got, want), (got.float() - want.float()).abs().max().item()
+
+
+@pytest.mark.parametrize("static", [False, True])
+@pytest.mark.parametrize("n,cin,cout,k,dilation,spatial", CLASSIC_LIBRARY_SHAPES)
+def test_int8_kernel_at_former_library_shapes(device, n, cin, cout, k, dilation, spatial, static):
+    """``Int8Conv.on_card`` at every shape the library route once served:
+    one ``int8_conv`` launch, no library call and no epilogue launch, the
+    output unpadded in the input's channels-last format, bit for bit the
+    plain conv of the unpadded weights."""
+    from hobot_stereonet_tpu_torch.models.layers import SameConv2d, SameConv3d
+    from hobot_stereonet_tpu_torch.ops import int8_gemm
+    from hobot_stereonet_tpu_torch.ops.kernels.int8_conv import memory_format
+    from hobot_stereonet_tpu_torch.ops.quant import Int8Conv, activation_scale
+
+    torch.manual_seed(10)
+    conv = SameConv3d(cin, cout, k) if len(spatial) == 3 else SameConv2d(cin, cout, k, 1,
+                                                                         dilation)
+    mod = Int8Conv(conv, torch.bfloat16, 0.05 if static else None).to(device)
+    assert mod.route == "kernel"
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy((2.0 * rng.standard_normal((n,) + spatial + (cin,))).astype(np.float32))
+    x = x.bfloat16().to(device).movedim(-1, 1)
+    sx, qs = (mod.act_scale, mod.act_mult) if static else (activation_scale(x),) * 2
+    n0, c0 = build.launch_counts["int8_conv"], int8_gemm.calls["cuda"]
+    e0 = build.launch_counts["int8_epilogue"]
+    got = mod.on_card(x, sx, qs, divide=not static)
+    torch.cuda.synchronize()
+    assert build.launch_counts["int8_conv"] == n0 + 1 and int8_gemm.calls["cuda"] == c0
+    assert build.launch_counts["int8_epilogue"] == e0
+    want = int8_conv_plain(x, mod.q_weight, mod.weight_scale, mod.bias, sx, qs, stride=1,
+                           dilation=dilation, divide=not static, out_dtype=torch.bfloat16)
+    assert got.shape == want.shape == (n, cout) + spatial
+    assert got.is_contiguous(memory_format=memory_format(x.dim()))
     assert torch.equal(got, want), (got.float() - want.float()).abs().max().item()
 
 
@@ -991,9 +1084,11 @@ def test_int8_conv_dense_path_at_cin_4(device, n, cout, h, w, static):
 
 
 def test_classic_int8_on_the_card_takes_both_routes(device):
-    """A small CLASSIC in int8 on the card: the kernel and the library route
-    both launched, finite disparities, a frame alone equal to the same frame
-    in the batch (per-sample scales, fixed summation orders)."""
+    """A small CLASSIC in int8 on the card: every conv (3-D and dilated
+    included) through the int8 kernel, the library route never called and
+    the epilogue kernel never launched, finite disparities, a frame alone
+    equal to the same frame in the batch (per-sample scales, fixed
+    summation orders)."""
     from hobot_stereonet_tpu_torch.config import StereoNetConfig
     from hobot_stereonet_tpu_torch.models import StereoNet
     from hobot_stereonet_tpu_torch.ops import int8_gemm
@@ -1004,14 +1099,16 @@ def test_classic_int8_on_the_card_takes_both_routes(device):
                           refinement_scale_channels=(8, 4), refinement_scale_blocks=(3, 2))
     torch.manual_seed(0)
     net = serving_model(StereoNet(cfg, device=device), int8=True)
-    assert set(routes(net).values()) == {"kernel", "library"}
+    assert set(routes(net).values()) == {"kernel"}
     x = torch.rand((3, 64, 128, 3), device=device) * 2 - 1
     n0, c0 = build.launch_counts["int8_conv"], int8_gemm.calls["cuda"]
+    e0 = build.launch_counts["int8_epilogue"]
     with torch.inference_mode():
         whole = net(x, torch.roll(x, -3, 2))["disparity"]
         alone = net(x[1:2], torch.roll(x, -3, 2)[1:2])["disparity"]
     torch.cuda.synchronize()
-    assert build.launch_counts["int8_conv"] > n0 and int8_gemm.calls["cuda"] > c0
+    assert build.launch_counts["int8_conv"] > n0 and int8_gemm.calls["cuda"] == c0
+    assert build.launch_counts["int8_epilogue"] == e0
     assert torch.isfinite(whole).all() and torch.equal(whole[1:2], alone)
 
 
