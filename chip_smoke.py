@@ -451,8 +451,11 @@ def kernel_report(lib: Path, log: str) -> dict:
             for key in SASS_OPS:
                 if op == key or op.startswith(key + "."):
                     counts[key] += 1
-            if op.startswith(("LDG", "LDS", "STG", "STS")) and ".128" in op:
-                counts[op.split(".")[0] + ".128"] = counts.get(op.split(".")[0] + ".128", 0) + 1
+            if op.startswith(("LDG", "LDS", "STG", "STS")):
+                for width in ("64", "128"):
+                    if width in op.split(".")[1:]:
+                        key = f"{op.split('.')[0]}.{width}"
+                        counts[key] = counts.get(key, 0) + 1
     return report
 
 
@@ -977,6 +980,26 @@ def on_path(names, fn):
     return out, counts
 
 
+# Launches by route on the main paths, by kernel and path: {name: {path: {route: n}}}.
+ROUTE_LAUNCHES: dict = {}
+
+
+def check_routes(path: str, name: str, route: str, launches: int) -> dict:
+    """Read the route counts of ``name`` since the last reset (the path just
+    driven), record them under ``path`` and fail unless all ``launches`` took
+    ``route``."""
+    from hobot_stereonet_tpu_torch.ops.kernels import build
+
+    got = {k.split("/", 1)[1]: n for k, n in build.route_counts.items()
+           if k.split("/", 1)[0] == name}
+    ROUTE_LAUNCHES.setdefault(name, {})[path] = got
+    if launches <= 0 or got != {route: launches}:
+        raise AssertionError(f"{path}: {name} launched {launches} times, by route {got}; "
+                             f"expected all on the {route} route")
+    phase(f"routes: {path}: {name} launched {launches} times, by route {got}")
+    return got
+
+
 def profile_summary(prof, top: int = 10) -> tuple:
     """From a ``torch.profiler`` run: (device-busy share of the traced
     window, total device time in ms, the ``top`` device kernels and copies
@@ -1195,30 +1218,44 @@ def int8_and_rgb_phase(ctx: dict) -> dict:
 
 def classic_kernel_row(b, rng, flush, dev, h, w, d, scale, card) -> dict:
     """The D-leading soft-argmin against its plain version at batch ``b`` on
-    the CLASSIC path's cost [b, D, h, w] bf16; its time beside its bound."""
+    the CLASSIC path's cost [b, D, h, w] bf16 (and against the scalar route,
+    bit for bit); its route, time and bound."""
     import numpy as np
     import torch
 
+    from hobot_stereonet_tpu_torch.ops.kernels import build
     from hobot_stereonet_tpu_torch.ops.kernels import correlation as kc
 
     cost = torch.from_numpy(3.0 * rng.standard_normal((b, d, h, w), np.float32)
                             ).bfloat16().to(dev)
+    plan = kc.soft_argmin_cost_plan(b, d, h * w, cost.data_ptr(), cost.element_size())
+    build.route_counts.clear()
     got_d, got_c = kc.soft_argmin_cost(cost, scale)
+    routes = dict(build.route_counts)
     want_d, want_c = kc.soft_argmin_cost_plain(cost, scale)
+    scalar = kc._soft_argmin_cost_launch(cost, scale, "scalar")
     torch.cuda.synchronize()
     torch.testing.assert_close(got_d, want_d, rtol=1e-5, atol=1e-4)
     torch.testing.assert_close(got_c, want_c, rtol=1e-5, atol=1e-6)
+    if routes != {f"{kc.SOFT_ARGMIN_COST}/vector": 1} or not (
+            torch.equal(got_d, scalar[0]) and torch.equal(got_c, scalar[1])):
+        raise AssertionError(f"{kc.SOFT_ARGMIN_COST} [{b}, {d}, {h}, {w}]: routes {routes} "
+                             f"(plan {plan}); the vector route must equal the scalar one")
     err = max((got_d - want_d).abs().max().item(), (got_c - want_c).abs().max().item())
     row = dict(
         name=kc.SOFT_ARGMIN_COST, route="cuda", source="hobot_stereonet_tpu_torch/csrc/soft_argmin.cu",
-        replaces="hobot_stereonet_tpu/ops/pallas/correlation.py:124", batch=b,
+        replaces="hobot_stereonet_tpu/ops/pallas/correlation.py:124", batch=b, shape=f"{h}x{w}",
+        plan=dict(route=plan.route, pixels=plan.pixels, threads=plan.threads,
+                  grid=list(plan.grid)),
         tolerance="f32 rounding (rtol 1e-5, atol 1e-4 px / 1e-6)", max_abs_err=err,
         ms=median_ms(lambda: kc.soft_argmin_cost(cost, scale), flush),
         ms_read_flush=median_ms(lambda: kc.soft_argmin_cost(cost, scale), flush, read_flush=True),
         plain_ms=median_ms(lambda: kc.soft_argmin_cost_plain(cost, scale), flush),
         bound=bound(b * d * h * w * 2 + 2 * b * h * w * 4, 5.0 * b * h * w * d),
         library_ms=None)
-    phase(f"kernel {row['name']} B={b} (cost [{b},{d},{h},{w}] bf16): max |err| {err:.3g} "
+    phase(f"kernel {row['name']} B={b} (cost [{b},{d},{h},{w}] bf16): {plan.route} route, "
+          f"{plan.pixels} pixels a thread, {plan.threads} threads a block, grid {plan.grid}, "
+          f"bit-equal to the scalar route; max |err| {err:.3g} "
           f"({row['tolerance']}), kernel {row['ms']:.4f} ms ({row['ms_read_flush']:.4f} ms after "
           f"a read flush), plain {row['plain_ms']:.4f} ms, bound {row['bound'][0]:.4f} ms "
           f"({row['bound'][1]}, {100 * row['bound'][0] / row['ms']:.0f}% of it); {card}")
@@ -1251,6 +1288,10 @@ def classic_phase(ctx: dict) -> tuple:
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     rows = [classic_kernel_row(b, rng, flush, dev, H // k, W // k, mcfg.num_disparities_coarse,
                                float(k), card) for b in BATCHES]
+    # The training shape: a batch of 8 crops of 128x256, cost at 1/8.
+    rows.append(classic_kernel_row(TRAIN_BATCH, rng, flush, dev, TRAIN_CROP[0] // k,
+                                   TRAIN_CROP[1] // k, mcfg.num_disparities_coarse, float(k),
+                                   card))
     del flush
 
     # The trained weights against the stored JAX outputs (RGB input).
@@ -1319,6 +1360,8 @@ def classic_phase(ctx: dict) -> tuple:
           f"{float(stored['heldout_d1']):.4f}); launches {counts} ({time.monotonic() - t:.1f} s)")
     if not lo <= res.epe <= hi:
         raise AssertionError(f"CLASSIC held-out EPE {res.epe} outside [{lo}, {hi}]")
+    check_routes("classic held-out bf16", "soft_argmin_cost", "vector",
+                 counts["soft_argmin_cost"])
 
     # The engine: 32 frames at 720p, microbatch 8, streamed == synchronous;
     # the microbatched pipeline against the whole batch on rendered scenes.
@@ -1333,6 +1376,7 @@ def classic_phase(ctx: dict) -> tuple:
     if eng.metrics.dispatch_batch.n != 1 or launches["soft_argmin_cost"] != N_FRAMES // 8:
         raise AssertionError(f"classic engine: {eng.metrics.dispatch_batch.summary()}, "
                              f"launches {launches}")
+    check_routes("classic engine", "soft_argmin_cost", "vector", launches["soft_argmin_cost"])
     with torch.inference_mode():
         sync = [o.cpu().numpy() for o in eng.pipeline(torch.from_numpy(feed).to(dev))[:3]]
     for r in results:
@@ -1779,6 +1823,7 @@ def backward_kernel_rows(rng, flush, dev, c, d, scale, card) -> list:
     import numpy as np
     import torch
 
+    from hobot_stereonet_tpu_torch.ops.kernels import build
     from hobot_stereonet_tpu_torch.ops.kernels import correlation as kc
 
     def randn(*shape, s=1.0):
@@ -1810,9 +1855,20 @@ def backward_kernel_rows(rng, flush, dev, c, d, scale, card) -> list:
                  b * h * w * (2 * d * cost.element_size() + 8), 10.0 * b * h * w * d),
             ]
             for name, src, replaces, fn, plain, nbytes, flops in cases:
+                build.route_counts.clear()
                 got, want = fn(), plain()
+                routes = dict(build.route_counts)
+                again = fn() if name == kc.CORRELATION_BWD else got
                 torch.cuda.synchronize()
                 detail = "; ".join(check_backward(name, g, p) for g, p in zip(got, want))
+                if name == kc.CORRELATION_BWD:
+                    # Tensor cores in bf16, SIMT in float32; no atomics: two calls, one result.
+                    route = "mma" if dtype == torch.bfloat16 else "simt"
+                    if routes != {f"{name}/{route}": 1}:
+                        raise AssertionError(f"{name} {dtype} B={b} {h}x{w}: routes {routes}")
+                    if not all(torch.equal(g, a) for g, a in zip(got, again)):
+                        raise AssertionError(f"{name} {dtype} B={b} {h}x{w}: two calls differ")
+                    detail += f"; {route} route, two calls bit-equal"
                 err = max((g.float() - p.float()).abs().max().item() for g, p in zip(got, want))
                 if dtype != torch.bfloat16:
                     phase(f"kernel {name} B={b} {h}x{w} float32: {detail}")
@@ -1820,6 +1876,9 @@ def backward_kernel_rows(rng, flush, dev, c, d, scale, card) -> list:
                 row = dict(
                     name=name, route="cuda", source="hobot_stereonet_tpu_torch/" + src,
                     replaces=replaces, batch=b, shape=f"{h}x{w}", max_abs_err=err,
+                    **({"plan": dict(route="mma", instruction="mma.sync.m16n8k16 bf16",
+                                     deterministic=True)}
+                       if name == kc.CORRELATION_BWD else {}),
                     tolerance=detail, ms=median_ms(fn, flush),
                     plain_ms=median_ms(plain, flush, iters=5),
                     bound=bound(nbytes, flops, BF16_FLOPS if name == kc.CORRELATION_BWD
@@ -1960,6 +2019,7 @@ def training_phase(ctx: dict) -> tuple:
             for n in TRAIN_PATH}
     if any(counts[n] != k for n, k in want.items()):
         raise AssertionError(f"expected {want} launches in {TRAIN_STEPS} steps: {counts}")
+    check_routes("flagship training loop", "correlation_bwd", "mma", counts["correlation_bwd"])
     launches = {(n, None): counts[n] for n in ("correlation_bwd", "soft_argmin_bwd")}
 
     # The device step alone: one batch on the card, 10 steps, then one profiled.
@@ -2026,6 +2086,8 @@ def training_phase(ctx: dict) -> tuple:
           f"({time.monotonic() - t:.1f} s)")
     if not all(np.isfinite(closs)) or ccounts["soft_argmin_cost_bwd"] != CLASSIC_TRAIN_STEPS:
         raise AssertionError(f"CLASSIC training: losses {closs}, launches {ccounts}")
+    check_routes("classic training loop", "soft_argmin_cost", "vector",
+                 ccounts["soft_argmin_cost"])
     launches[("soft_argmin_cost_bwd", None)] = ccounts["soft_argmin_cost_bwd"]
     return rows, launches
 
@@ -3079,6 +3141,19 @@ def main() -> int:
 
     hmma = sass("correlation_bf16_kernel", "HMMA")
     vec = sass("soft_argmin_vector_kernel", "LDG.128")
+    # The backward on the tensor cores, fed by 16-byte cp.async; the D-leading
+    # soft-argmin's vector instantiations' 8-byte loads (float32; bf16 loads 4
+    # bytes, reported).
+    bwd_hmma = sass("correlation_backward_mma_kernel", "HMMA")
+    bwd_cp = sass("correlation_backward_mma_kernel", "LDGSTS.128")
+    dlead_vec = {fn: {k: info.get("sass", {}).get(k, 0) for k in ("LDG", "LDG.64")}
+                 for fn, info in report.items()
+                 if fn.startswith("soft_argmin_dlead_vector_kernel")}
+    phase(f"build: correlation_backward_mma_kernel HMMA {bwd_hmma}, LDGSTS.128 {bwd_cp}; "
+          f"soft_argmin_dlead_vector_kernel loads by instantiation {dlead_vec}")
+    if min(bwd_hmma, bwd_cp) <= 0:
+        raise AssertionError("expected HMMA and LDGSTS.128 (16-byte cp.async) in "
+                             f"correlation_backward_mma_kernel: {bwd_hmma}, {bwd_cp}")
     igmma = min(sass(k, "IGMMA") for k in ("int8_conv_wgmma_kernel", "int8_conv_dense_kernel"))
     # Each instantiation of the TMA kernel, the 8-row tiles of the dilated
     # and 3-D convs included, issues wgmma and TMA loads.
@@ -3471,8 +3546,9 @@ def main() -> int:
         batch=r["batch"], launches=row_launches(r), max_abs_err=r["max_abs_err"], ms=r["ms"],
         plain_ms=r["plain_ms"], bound_ms=r["bound"][0], bound_by=r["bound"][1],
         library_ms=r["library_ms"],
-        **{k: r[k] for k in ("cudnn_bf16_ms", "unfused_ms", "other_mode_ms", "tile_rows")
+        **{k: r[k] for k in ("cudnn_bf16_ms", "unfused_ms", "other_mode_ms", "tile_rows", "plan")
            if k in r},
+        **({"route_launches": ROUTE_LAUNCHES[r["name"]]} if r["name"] in ROUTE_LAUNCHES else {}),
         **({"sharded_step_launches": sharded_launches(r)} if r["name"] in (
             "group_norm_stats", "group_norm_apply", "correlation_bwd", "soft_argmin_bwd",
             "soft_argmin_cost_bwd") else {}))

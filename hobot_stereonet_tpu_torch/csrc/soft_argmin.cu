@@ -39,13 +39,30 @@
 // [B, D, H, W] contiguous, as its 3-D aggregation leaves it
 // (hobot_stereonet_tpu/models/stereonet.py:143-150 computes soft_argmin(cost)
 // * k and disparity_confidence(cost) over axis 1).  It takes the cost with
-// its sign (logits = -cost, exact in bf16) and reads it where it lies: one
-// thread a pixel, its D values H*W apart, so a warp's 32 adjacent pixels
-// load 64 (bf16) or 128 (f32) contiguous bytes per candidate, coalesced.  At D = 24 the values stay in registers and memory
-// is read once; other D take two passes (the second from L1).  The
-// arithmetic is the one-pass kernel's.  Bound at the CLASSIC path's shapes
-// (B=8, 24 x 90 x 160 bf16): 5.53 MB read, 0.92 MB written, 1.93 us at
-// 3.35 TB/s (7.7 us at B=32).
+// its sign (logits = -cost, exact) and reads it where it lies, each pixel's D
+// values H*W apart.  Bound at the CLASSIC path's shapes (B=8, 24 x 90 x 160
+// bf16): 5.53 MB read, 0.92 MB written, 1.93 us at 3.35 TB/s (7.7 us at
+// B=32).
+//   Vector route (D = 24, plane % P == 0, the cost P * sizeof(T)-byte
+//   aligned; the wrapper's soft_argmin_cost_plan decides before launch):
+//   each thread takes P adjacent pixels of one plane and issues all 24 of
+//   its loads, one P-pixel vector a candidate, before the first use: a warp
+//   moves 32 * P * sizeof(T) contiguous bytes a load instruction and a
+//   thread has 24 of them in flight.  bf16 values stay packed two pixels to
+//   a register; the minimum over the candidates is one bf16x2 min a pair
+//   (exact), the exponentials and sums run in f32 in the scalar route's
+//   order, so both routes give the same bits.  Each thread stores its P
+//   disparities and confidences as vectors.  The grid is (plane / P /
+//   threads, B): the batch is the grid's second dimension, so no thread
+//   divides.  P = 2 (4-byte bf16 loads, 8-byte f32 ones) at 128 threads a
+//   block, fixed here: on the H100 it was the fastest of P = 2, 4, 8 at 64,
+//   128 and 256 threads, and the kernel runs at the card's DRAM rate plus
+//   its launch (PERF.md; scripts/torch_cost_kernels_ab.py --sweep rebuilds
+//   this file with the others through HST_DLEAD_PIXELS / HST_DLEAD_THREADS).
+//   Scalar route (any other D, plane or alignment): one thread a pixel, a
+//   warp's 32 adjacent pixels load 64 (bf16) or 128 (f32) contiguous bytes
+//   a candidate; at D = 24 the values stay in registers, other D take two
+//   passes (the second from L1).  The same (plane, B) grid.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -55,6 +72,17 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kVectorD = 24;
+#ifndef HST_DLEAD_PIXELS
+#define HST_DLEAD_PIXELS 2
+#endif
+#ifndef HST_DLEAD_THREADS
+#define HST_DLEAD_THREADS 128
+#endif
+constexpr int kDleadPixels = HST_DLEAD_PIXELS;     // the vector route's P
+constexpr int kDleadThreads = HST_DLEAD_THREADS;   // and block
+static_assert((kDleadPixels == 2 || kDleadPixels == 4 || kDleadPixels == 8) &&
+                  kDleadThreads % 32 == 0 && kDleadThreads <= kThreads,
+              "the vector route takes 2, 4 or 8 pixels a thread, up to 256 threads");
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Softmax statistics of one pixel's D bf16 logits, packed two to a register.
@@ -129,22 +157,22 @@ __device__ __forceinline__ float logit(const T* cost) {
   return -to_f32(__ldg(cost));
 }
 
-// One pixel's softmax statistics over D candidates `plane` elements apart.
+// Scalar route: one pixel's softmax statistics over D candidates `plane`
+// elements apart; pixel blockIdx.x * kThreads + threadIdx.x of sample blockIdx.y.
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 soft_argmin_dlead_kernel(const T* __restrict__ cost, float* __restrict__ disp,
-                         float* __restrict__ conf, long long N, long long plane, int d_rt,
-                         float scale) {
-  const long long n = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (n >= N) return;
-  const long long b = n / plane;
+                         float* __restrict__ conf, int plane, int d_rt, float scale) {
+  const int p = blockIdx.x * kThreads + threadIdx.x;
+  if (p >= plane) return;
   const int nd = D > 0 ? D : d_rt;
-  const T* c = cost + b * nd * plane + (n - b * plane);
+  const long long n = static_cast<long long>(blockIdx.y) * plane + p;
+  const T* c = cost + static_cast<long long>(blockIdx.y) * nd * plane + p;
   float sum = 0.0f, wsum = 0.0f;
   if constexpr (D > 0) {
     float v[D];
 #pragma unroll
-    for (int d = 0; d < D; ++d) v[d] = logit(c + d * plane);
+    for (int d = 0; d < D; ++d) v[d] = logit(c + static_cast<long long>(d) * plane);
     float m = v[0];
 #pragma unroll
     for (int d = 1; d < D; ++d) m = fmaxf(m, v[d]);
@@ -156,9 +184,9 @@ soft_argmin_dlead_kernel(const T* __restrict__ cost, float* __restrict__ disp,
     }
   } else {
     float m = logit(c);
-    for (int d = 1; d < nd; ++d) m = fmaxf(m, logit(c + d * plane));
+    for (int d = 1; d < nd; ++d) m = fmaxf(m, logit(c + static_cast<long long>(d) * plane));
     for (int d = 0; d < nd; ++d) {
-      const float e = exp2f((logit(c + d * plane) - m) * kLog2e);
+      const float e = exp2f((logit(c + static_cast<long long>(d) * plane) - m) * kLog2e);
       sum += e;
       wsum = fmaf(static_cast<float>(d), e, wsum);
     }
@@ -167,19 +195,124 @@ soft_argmin_dlead_kernel(const T* __restrict__ cost, float* __restrict__ disp,
   conf[n] = 1.0f / sum;
 }
 
+// P values of T in one load: 4, 8 or 16 bytes.
+template <int Bytes> struct LoadWord;
+template <> struct LoadWord<4> { using type = unsigned int; };
+template <> struct LoadWord<8> { using type = uint2; };
+template <> struct LoadWord<16> { using type = uint4; };
+
+// The minimum cost of each of a thread's P pixels over the D candidates, as
+// f32; w[d] holds candidate d of the P pixels.
+template <int D, int P, typename Word>
+__device__ __forceinline__ void min_cost(const Word (&w)[D], const __nv_bfloat16*,
+                                         float (&mn)[P]) {
+#pragma unroll
+  for (int j = 0; j < P / 2; ++j) {
+    __nv_bfloat162 m = reinterpret_cast<const __nv_bfloat162*>(&w[0])[j];
+#pragma unroll
+    for (int d = 1; d < D; ++d) m = __hmin2(m, reinterpret_cast<const __nv_bfloat162*>(&w[d])[j]);
+    mn[2 * j] = __low2float(m);
+    mn[2 * j + 1] = __high2float(m);
+  }
+}
+
+template <int D, int P, typename Word>
+__device__ __forceinline__ void min_cost(const Word (&w)[D], const float*, float (&mn)[P]) {
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    mn[i] = reinterpret_cast<const float*>(&w[0])[i];
+#pragma unroll
+    for (int d = 1; d < D; ++d) mn[i] = fminf(mn[i], reinterpret_cast<const float*>(&w[d])[i]);
+  }
+}
+
+// P consecutive f32 outputs (P even; n a multiple of P, 16-byte stores from P = 4).
+template <int P>
+__device__ __forceinline__ void store_pixels(float* __restrict__ out, const float (&v)[P]) {
+#pragma unroll
+  for (int i = 0; i < P; i += (P >= 4 ? 4 : 2)) {
+    if constexpr (P >= 4) {
+      *reinterpret_cast<float4*>(out + i) = make_float4(v[i], v[i + 1], v[i + 2], v[i + 3]);
+    } else {
+      *reinterpret_cast<float2*>(out + i) = make_float2(v[i], v[i + 1]);
+    }
+  }
+}
+
+// Vector route: P adjacent pixels a thread, vector blockIdx.x * kDleadThreads +
+// threadIdx.x of the plane of sample blockIdx.y; plane % P == 0.
+template <typename T, int D, int P>
+__global__ void __launch_bounds__(kDleadThreads)
+soft_argmin_dlead_vector_kernel(const T* __restrict__ cost, float* __restrict__ disp,
+                                float* __restrict__ conf, int plane, float scale) {
+  using Word = typename LoadWord<P * sizeof(T)>::type;
+  const int q = blockIdx.x * kDleadThreads + threadIdx.x;
+  if (q >= plane / P) return;
+  const T* c = cost + static_cast<long long>(blockIdx.y) * D * plane + q * P;
+  Word w[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    w[d] = __ldg(reinterpret_cast<const Word*>(c + static_cast<long long>(d) * plane));
+  }
+  // m = max of the logits -v = -(min v), exact; (-v) - m is then the scalar
+  // route's v - m, bit for bit.
+  float mn[P];
+  min_cost<D, P>(w, cost, mn);
+  float dv[P], cv[P];
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    const float m = -mn[i];
+    float sum = 0.0f, wsum = 0.0f;
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      const float e = exp2f((-to_f32(reinterpret_cast<const T*>(&w[d])[i]) - m) * kLog2e);
+      sum += e;
+      wsum = fmaf(static_cast<float>(d), e, wsum);
+    }
+    dv[i] = (wsum / sum) * scale;
+    cv[i] = 1.0f / sum;
+  }
+  const long long n = static_cast<long long>(blockIdx.y) * plane + q * P;
+  store_pixels<P>(disp + n, dv);
+  store_pixels<P>(conf + n, cv);
+}
+
 template <typename T>
-int launch_dlead(const void* cost, void* disp, void* conf, long long n, long long plane, int D,
-                 float scale, cudaStream_t s) {
-  const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
+int launch_dlead(const void* cost, void* disp, void* conf, int B, int plane, int D, float scale,
+                 cudaStream_t s) {
+  const dim3 grid((plane + kThreads - 1) / kThreads, B);
   const T* c = static_cast<const T*>(cost);
   float* dp = static_cast<float*>(disp);
   float* cf = static_cast<float*>(conf);
   if (D == kVectorD) {
-    soft_argmin_dlead_kernel<T, kVectorD><<<blocks, kThreads, 0, s>>>(c, dp, cf, n, plane, D,
-                                                                       scale);
+    soft_argmin_dlead_kernel<T, kVectorD><<<grid, kThreads, 0, s>>>(c, dp, cf, plane, D, scale);
   } else {
-    soft_argmin_dlead_kernel<T, 0><<<blocks, kThreads, 0, s>>>(c, dp, cf, n, plane, D, scale);
+    soft_argmin_dlead_kernel<T, 0><<<grid, kThreads, 0, s>>>(c, dp, cf, plane, D, scale);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Pixels a thread of T on the vector route: P, at most one 16-byte load.
+template <typename T>
+constexpr int vector_pixels() {
+  return kDleadPixels * sizeof(T) > 16 ? 16 / sizeof(T) : kDleadPixels;
+}
+
+// The vector route, or cudaErrorInvalidValue where it does not fit (the
+// wrapper's plan never asks for that).
+template <typename T>
+int launch_dlead_vector(const void* cost, void* disp, void* conf, int B, int D, int plane,
+                        float scale, cudaStream_t s) {
+  constexpr int P = vector_pixels<T>();
+  const uintptr_t out_align = P >= 4 ? 16 : 8;
+  const uintptr_t misaligned = (reinterpret_cast<uintptr_t>(cost) % (P * sizeof(T))) |
+                               (reinterpret_cast<uintptr_t>(disp) % out_align) |
+                               (reinterpret_cast<uintptr_t>(conf) % out_align);
+  if (D != kVectorD || plane % P || misaligned) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((plane / P + kDleadThreads - 1) / kDleadThreads, B);
+  soft_argmin_dlead_vector_kernel<T, kVectorD, P><<<grid, kDleadThreads, 0, s>>>(
+      static_cast<const T*>(cost), static_cast<float*>(disp), static_cast<float*>(conf), plane,
+      scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -344,14 +477,21 @@ extern "C" int hst_soft_argmin_dlead_backward(const void* cost, const void* gd, 
 }
 
 // cost [B, D, H, W] contiguous (plane = H*W), lower is better; disp, conf
-// [B, H, W] f32.
+// [B, H, W] f32.  vector != 0 takes the vector route (2 pixels a thread),
+// which needs D = 24, an even plane, the cost 2 * sizeof(T)-byte and disp,
+// conf 8-byte aligned, else this returns cudaErrorInvalidValue; vector == 0
+// the scalar route.
 extern "C" int hst_soft_argmin_dlead(const void* cost, void* disp, void* conf, int B, int D,
-                                     int plane, float scale, int is_bf16, void* stream) {
-  if (B <= 0 || D <= 0 || plane <= 0) return static_cast<int>(cudaErrorInvalidValue);
+                                     int plane, float scale, int is_bf16, int vector,
+                                     void* stream) {
+  if (B <= 0 || D <= 0 || plane <= 0 || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long n = static_cast<long long>(B) * plane;
-  return is_bf16 ? launch_dlead<__nv_bfloat16>(cost, disp, conf, n, plane, D, scale, s)
-                 : launch_dlead<float>(cost, disp, conf, n, plane, D, scale, s);
+  if (vector) {
+    return is_bf16 ? launch_dlead_vector<__nv_bfloat16>(cost, disp, conf, B, D, plane, scale, s)
+                   : launch_dlead_vector<float>(cost, disp, conf, B, D, plane, scale, s);
+  }
+  return is_bf16 ? launch_dlead<__nv_bfloat16>(cost, disp, conf, B, plane, D, scale, s)
+                 : launch_dlead<float>(cost, disp, conf, B, plane, D, scale, s);
 }
 
 // vector != 0 selects the D=24 bf16 kernel, which needs 16-byte aligned

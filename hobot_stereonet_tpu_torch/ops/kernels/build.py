@@ -35,6 +35,9 @@ BUILD_TIMEOUT_S = 600
 # where it launches its kernel and nowhere else; plain-version calls on CPU
 # tensors do not count.
 launch_counts: "collections.Counter[str]" = collections.Counter()
+# The same launches by route, for kernels that take one of several by shape
+# ("soft_argmin_cost/vector", "correlation_bwd/mma", ...).
+route_counts: "collections.Counter[str]" = collections.Counter()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -48,10 +51,10 @@ _SIGNATURES = {
     "hst_correlation": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
     # logits, disp, conf, N, D, scale, is_bf16, vector, stream
     "hst_soft_argmin": (_P, _P, _P, _I, _I, _F, _I, _I, _P),
-    # cost, disp, conf, B, D, H*W, scale, is_bf16, stream
-    "hst_soft_argmin_dlead": (_P, _P, _P, _I, _I, _I, _F, _I, _P),
-    # dcorr, fl, fr, dfl, dfr, B, H, W, C, D, 1/divisor, is_bf16, stream
-    "hst_correlation_backward": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
+    # cost, disp, conf, B, D, H*W, scale, is_bf16, vector (else the scalar route), stream
+    "hst_soft_argmin_dlead": (_P, _P, _P, _I, _I, _I, _F, _I, _I, _P),
+    # dcorr, fl, fr, dfl, dfr, B, H, W, C, D, 1/divisor, is_bf16, mma (else SIMT), stream
+    "hst_correlation_backward": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P),
     # logits, gd, gc, dlogits, N, D, scale, is_bf16, stream
     "hst_soft_argmin_backward": (_P, _P, _P, _P, _I, _I, _F, _I, _P),
     # cost, gd, gc, dcost, B, D, H*W, scale, is_bf16, stream
@@ -74,6 +77,7 @@ _lib = None
 
 def reset_launch_counts() -> None:
     launch_counts.clear()
+    route_counts.clear()
 
 
 def sources() -> list:

@@ -26,6 +26,7 @@ the same kernel launches, the same bits.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -39,16 +40,25 @@ CORRELATION_BWD = "correlation_bwd"
 SOFT_ARGMIN_BWD = "soft_argmin_bwd"
 SOFT_ARGMIN_COST_BWD = "soft_argmin_cost_bwd"
 SOFT_ARGMIN_VECTOR_D = 24     # D of the one-pass kernel (the flagship's coarse D)
+# The D-leading soft-argmin's vector route as csrc/soft_argmin.cu fixes it:
+# pixels a thread (one 4-byte bf16 or 8-byte float32 load a candidate) and
+# threads a block; the scalar route's block.
+SOFT_ARGMIN_COST_PIXELS = 2
+SOFT_ARGMIN_COST_THREADS = 128
+SOFT_ARGMIN_COST_SCALAR_THREADS = 256
+# The widest band the correlation backward's tensor-core kernel takes: D + 15
+# band columns in at most 4 k-steps of 16.
+BWD_MAX_D = 49
 _DTYPES = (torch.float32, torch.bfloat16)
-_PLAIN_DTYPES = _DTYPES + (torch.float64,)    # the plain soft-argmin also takes float64
+_PLAIN_DTYPES = _DTYPES + (torch.float64,)    # the plain versions also take float64
 
 
-def _check_features(feat_l: torch.Tensor, feat_r: torch.Tensor) -> None:
+def _check_features(feat_l: torch.Tensor, feat_r: torch.Tensor, dtypes=_DTYPES) -> None:
     if feat_l.shape != feat_r.shape or feat_l.dim() != 4:
         raise ValueError(
             f"{CORRELATION}: expected two [B,H,W,C] maps of one shape, got "
             f"{tuple(feat_l.shape)} and {tuple(feat_r.shape)}")
-    if feat_l.dtype != feat_r.dtype or feat_l.dtype not in _DTYPES:
+    if feat_l.dtype != feat_r.dtype or feat_l.dtype not in dtypes:
         raise TypeError(
             f"{CORRELATION}: expected float32 or bfloat16 features of one "
             f"type, got {feat_l.dtype} and {feat_r.dtype}")
@@ -223,19 +233,21 @@ def correlation_volume_backward_plain(dcorr: torch.Tensor, feat_l: torch.Tensor,
     with T the features' dtype and the sums in float32 in the order of d.
     That is ``jax.vjp`` of ``build_correlation_volume``: XLA divides by the
     constant divisor as a multiply by its float32 reciprocal, and the Gram
-    matrix's transpose sums in float32 and rounds once.
+    matrix's transpose sums in float32 and rounds once.  float64 features
+    (which only the plain versions take) sum in float64.
     """
-    _check_features(feat_l, feat_r)
+    _check_features(feat_l, feat_r, _PLAIN_DTYPES)
     b, h, w, c = feat_l.shape
     d_total = dcorr.shape[-1]
     dt = feat_l.dtype
+    acc = torch.promote_types(dt, torch.float32)
     _check_cotangent(CORRELATION_BWD, dcorr, (b, h, w, d_total), dt, feat_l.device)
     inv = reciprocal_f32(correlation_divisor(c, dt))
-    g = (dcorr.float() * inv).to(dt).float()
+    g = (dcorr.to(acc) * inv).to(dt).to(acc)
     x = torch.arange(w, device=dcorr.device)[:, None]
     d = torch.arange(d_total, device=dcorr.device)[None]
     g = torch.where(x >= d, g, 0.0)
-    fl, fr = feat_l.float(), feat_r.float()
+    fl, fr = feat_l.to(acc), feat_r.to(acc)
     dfl, dfr = torch.zeros_like(fl), torch.zeros_like(fr)
     for k in range(min(d_total, w)):
         gk = g[:, :, k:, k:k + 1]
@@ -244,13 +256,25 @@ def correlation_volume_backward_plain(dcorr: torch.Tensor, feat_l: torch.Tensor,
     return dfl.to(dt), dfr.to(dt)
 
 
+def correlation_backward_route(dtype: torch.dtype, c: int, d_total: int, *ptrs: int) -> str:
+    """The kernel ``hst_correlation_backward`` is told to run, fixed before
+    launch: "mma" (bf16 on the tensor cores: C % 16 == 0, C <= 256, D <=
+    ``BWD_MAX_D`` and the four feature tensors' addresses ``ptrs`` 16-byte
+    aligned; the C side refuses an "mma" launch that does not fit), else
+    "simt" (float32 always)."""
+    fits = (c % 16 == 0 and c <= 256 and d_total <= BWD_MAX_D
+            and all(p % 16 == 0 for p in ptrs))
+    return "mma" if dtype == torch.bfloat16 and fits else "simt"
+
+
 def correlation_volume_backward(dcorr: torch.Tensor, feat_l: torch.Tensor,
                                 feat_r: torch.Tensor):
     """(dfl, dfr): the backward of :func:`correlation_volume`.
 
     CUDA tensors go through ``hst_correlation_backward``
-    (``csrc/correlation.cu``), CPU tensors through
-    :func:`correlation_volume_backward_plain`.
+    (``csrc/correlation.cu``: bf16 on the tensor cores where
+    :func:`correlation_backward_route` says "mma", else its SIMT kernel), CPU
+    tensors through :func:`correlation_volume_backward_plain`.
     """
     if feat_l.device.type == "cpu":
         return correlation_volume_backward_plain(dcorr, feat_l, feat_r)
@@ -263,12 +287,15 @@ def correlation_volume_backward(dcorr: torch.Tensor, feat_l: torch.Tensor,
     if not (dcorr.is_contiguous() and feat_l.is_contiguous() and feat_r.is_contiguous()):
         raise ValueError(f"{CORRELATION_BWD}: dcorr and the features must be contiguous")
     dfl, dfr = torch.empty_like(feat_l), torch.empty_like(feat_r)
+    route = correlation_backward_route(feat_l.dtype, c, d, feat_l.data_ptr(), feat_r.data_ptr(),
+                                       dfl.data_ptr(), dfr.data_ptr())
     err = build.library().hst_correlation_backward(
         dcorr.data_ptr(), feat_l.data_ptr(), feat_r.data_ptr(), dfl.data_ptr(), dfr.data_ptr(),
         b, h, w, c, d, reciprocal_f32(correlation_divisor(c, feat_l.dtype)),
-        int(feat_l.dtype == torch.bfloat16), build.stream_handle(feat_l))
+        int(feat_l.dtype == torch.bfloat16), int(route == "mma"), build.stream_handle(feat_l))
     build.check(CORRELATION_BWD, err)
     build.launch_counts[CORRELATION_BWD] += 1
+    build.route_counts[f"{CORRELATION_BWD}/{route}"] += 1
     return dfl, dfr
 
 
@@ -491,9 +518,10 @@ def soft_argmin_cost(cost: torch.Tensor, scale: float = 1.0):
     confidence of a D-leading cost [B,D,H,W] (lower is better),
     differentiable in the cost (:func:`soft_argmin_cost_backward`).
 
-    CUDA tensors go through ``csrc/soft_argmin.cu``'s D-leading kernel,
-    which reads the cost where it lies (it must be contiguous); CPU
-    tensors through :func:`soft_argmin_cost_plain`.
+    CUDA tensors go through ``csrc/soft_argmin.cu``'s D-leading kernels,
+    which read the cost where it lies (it must be contiguous), on the route
+    :func:`soft_argmin_cost_plan` picks; CPU tensors through
+    :func:`soft_argmin_cost_plain`.
     """
     op = torch.ops.hst.soft_argmin_cost
     if needs_grad(cost):
@@ -520,11 +548,46 @@ def _soft_argmin_cost_cuda(cost: torch.Tensor, scale: float):
     if not cost.is_contiguous():
         raise ValueError(f"{SOFT_ARGMIN_COST}: the cost must be contiguous [B,D,H,W]")
     b, d, h, w = cost.shape
+    plan = soft_argmin_cost_plan(b, d, h * w, cost.data_ptr(), cost.element_size())
+    return _soft_argmin_cost_launch(cost, scale, plan.route)
+
+
+def _soft_argmin_cost_launch(cost: torch.Tensor, scale: float, route: str):
+    """Launch ``route`` ("vector" or "scalar"); the C side refuses a vector
+    launch that does not fit."""
+    b, d, h, w = cost.shape
     disp = torch.empty((b, h, w), dtype=torch.float32, device=cost.device)
     conf = torch.empty_like(disp)
     err = build.library().hst_soft_argmin_dlead(
         cost.data_ptr(), disp.data_ptr(), conf.data_ptr(), b, d, h * w, float(scale),
-        int(cost.dtype == torch.bfloat16), build.stream_handle(cost))
+        int(cost.dtype == torch.bfloat16), int(route == "vector"), build.stream_handle(cost))
     build.check(SOFT_ARGMIN_COST, err)
     build.launch_counts[SOFT_ARGMIN_COST] += 1
+    build.route_counts[f"{SOFT_ARGMIN_COST}/{route}"] += 1
     return disp, conf
+
+
+class CostPlan(NamedTuple):
+    """A launch of ``hst_soft_argmin_dlead``."""
+    route: str           # "vector" or "scalar"
+    pixels: int          # adjacent pixels a thread (1 on the scalar route)
+    threads: int         # threads a block
+    grid: tuple          # (blocks along a plane, B)
+
+
+def soft_argmin_cost_plan(b: int, d: int, plane: int, ptr: int, itemsize: int) -> CostPlan:
+    """The route of the D-leading soft-argmin for a contiguous cost [b, d,
+    plane] of ``itemsize``-byte values at address ``ptr``, fixed by the
+    shape and the address before launch.
+
+    The vector route (``SOFT_ARGMIN_COST_PIXELS`` adjacent pixels a thread,
+    one load of them a candidate) needs d == ``SOFT_ARGMIN_VECTOR_D``, plane
+    % pixels == 0 and ``ptr`` aligned to pixels * itemsize bytes; anything
+    else takes the scalar route, one pixel a thread.  Either grid's second
+    dimension is the batch.
+    """
+    p, t = SOFT_ARGMIN_COST_PIXELS, SOFT_ARGMIN_COST_THREADS
+    if d == SOFT_ARGMIN_VECTOR_D and plane % p == 0 and ptr % (p * itemsize) == 0:
+        return CostPlan("vector", p, t, (-(-plane // (p * t)), b))
+    t = SOFT_ARGMIN_COST_SCALAR_THREADS
+    return CostPlan("scalar", 1, t, (-(-plane // t), b))

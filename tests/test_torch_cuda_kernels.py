@@ -18,7 +18,8 @@ orders (the tensor cores in theirs), so a Gram value can land one step
 away, which the division by bf16(sqrt C) and the second rounding carry
 to up to two steps of the output; a sum near zero can differ in its
 rounding far beyond its own size.  Soft-argmin, channel-last or over a
-D-leading cost, at f32 rounding (rtol 1e-5).  The backward kernels: in f32
+D-leading cost, at f32 rounding (rtol 1e-5); the D-leading one's vector route bit-equal to its
+scalar route (the same arithmetic in the same order).  The backward kernels: in f32
 within 1e-5 of the largest magnitude, in bf16 at least 99.9 % within one
 bf16 step of the plain version and all within two (their sums run in
 another order).  The CLASSIC StereoNet in
@@ -31,6 +32,7 @@ import pytest
 import torch
 
 from hobot_stereonet_tpu_torch.ops.kernels import build
+from hobot_stereonet_tpu_torch.ops.kernels import correlation as kc
 from hobot_stereonet_tpu_torch.ops.kernels.correlation import (
     bf16_ulp_distance,
     correlation_gram_band,
@@ -186,6 +188,39 @@ def test_soft_argmin_cost_kernel_refuses_a_strided_cost(device):
         soft_argmin_cost(cost[:, ::2], scale=8.0)
 
 
+@pytest.mark.parametrize("b,h,w,dtype,offset,route", [
+    (8, 90, 160, torch.bfloat16, 0, "vector"),     # CLASSIC serving, B = 8
+    (32, 90, 160, torch.bfloat16, 0, "vector"),
+    (8, 45, 160, torch.bfloat16, 0, "vector"),     # a tile = 2 row tile
+    (8, 16, 32, torch.bfloat16, 0, "vector"),      # the training shape
+    (3, 13, 9, torch.bfloat16, 0, "scalar"),       # an odd plane
+    (8, 90, 160, torch.bfloat16, 1, "scalar"),     # a view 2 bytes into its storage
+    (8, 90, 160, torch.float32, 0, "vector"),
+    (8, 16, 32, torch.float32, 0, "vector"),
+    (3, 13, 9, torch.float32, 0, "scalar"),
+    (8, 90, 160, torch.float32, 1, "scalar"),      # 4 bytes in: not 8-byte aligned
+])
+def test_soft_argmin_cost_kernel_routes(device, b, h, w, dtype, offset, route):
+    """Each route where the plan puts it, within f32 rounding of the plain
+    version, and the vector route bit-equal to the scalar one."""
+    rng = np.random.default_rng(b + h + w)
+    n = b * 24 * h * w
+    flat = torch.from_numpy((3.0 * rng.standard_normal(n + offset)).astype(np.float32))
+    cost = flat.to(dtype).to(device)[offset:].view(b, 24, h, w)
+    assert cost.is_contiguous()
+    key = f"soft_argmin_cost/{route}"
+    n0, r0 = build.launch_counts["soft_argmin_cost"], build.route_counts[key]
+    disp, conf = soft_argmin_cost(cost, scale=8.0)
+    assert build.launch_counts["soft_argmin_cost"] == n0 + 1
+    assert build.route_counts[key] == r0 + 1
+    scalar = kc._soft_argmin_cost_launch(cost, 8.0, "scalar")
+    torch.cuda.synchronize()
+    want_d, want_c = soft_argmin_cost_plain(cost, scale=8.0)
+    torch.testing.assert_close(disp, want_d, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(conf, want_c, rtol=1e-5, atol=1e-6)
+    assert torch.equal(disp, scalar[0]) and torch.equal(conf, scalar[1])
+
+
 def test_classic_stereonet_f32_on_the_card_equals_the_cpu(device):
     from hobot_stereonet_tpu_torch.config import StereoNetConfig
     from hobot_stereonet_tpu_torch.models import StereoNet
@@ -247,6 +282,63 @@ def test_correlation_backward_kernel(device, b, h, w, c, d, dtype):
     assert build.launch_counts["correlation_bwd"] == n0 + 1
     for a, p in zip(got, want):
         _bwd_check(a, p)
+
+
+@pytest.mark.parametrize("b,h,w,c,d,offset,route", [
+    (8, 16, 32, 32, 24, 0, "mma"),         # the training shape
+    (1, 4, 70, 64, 5, 0, "mma"),           # D % 8 != 0: dcorr staged by 2-byte loads
+    (2, 3, 40, 48, 24, 0, "mma"),          # a 16-channel pass after a 32-channel one
+    (1, 3, 17, 16, 24, 0, "mma"),          # W < D
+    (2, 3, 40, 24, 24, 0, "simt"),         # C % 16 != 0
+    (2, 3, 40, 32, 24, 1, "simt"),         # features 2 bytes into their storage
+])
+def test_correlation_backward_kernel_routes(device, b, h, w, c, d, offset, route):
+    g = torch.Generator(device="cpu").manual_seed(w + c + d)
+
+    def view(*shape):
+        n = int(np.prod(shape))
+        return torch.randn(n + offset, generator=g).to(device, torch.bfloat16)[offset:].view(shape)
+
+    fl, fr, dcorr = view(b, h, w, c), view(b, h, w, c), view(b, h, w, d)
+    key = f"correlation_bwd/{route}"
+    r0 = build.route_counts[key]
+    got = correlation_volume_backward(dcorr, fl, fr)
+    torch.cuda.synchronize()
+    assert build.route_counts[key] == r0 + 1
+    for a, p in zip(got, correlation_volume_backward_plain(dcorr, fl, fr)):
+        _bwd_check(a, p)
+
+
+def test_correlation_backward_kernel_is_deterministic(device):
+    """No atomics: two bf16 calls give the same bits."""
+    g = torch.Generator(device="cpu").manual_seed(19)
+    fl, fr = (torch.randn((8, 90, 160, 32), generator=g).to(device, torch.bfloat16)
+              for _ in range(2))
+    dcorr = torch.randn((8, 90, 160, 24), generator=g).to(device, torch.bfloat16)
+    r0 = build.route_counts["correlation_bwd/mma"]
+    first = correlation_volume_backward(dcorr, fl, fr)
+    second = correlation_volume_backward(dcorr, fl, fr)
+    torch.cuda.synchronize()
+    assert build.route_counts["correlation_bwd/mma"] == r0 + 2
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_cost_kernels_refuse_a_route_that_does_not_fit(device):
+    """The wrappers pick each route; the C side only checks it: a vector
+    soft-argmin on an odd plane and a tensor-core backward in float32 return
+    cudaErrorInvalidValue (1) and launch nothing."""
+    cost = torch.randn((2, 24, 3, 5), device=device).bfloat16()
+    n0 = dict(build.route_counts)
+    with pytest.raises(RuntimeError, match="CUDA error 1 at launch"):
+        kc._soft_argmin_cost_launch(cost, 8.0, "vector")
+    assert dict(build.route_counts) == n0
+    fl, fr = (torch.randn((2, 3, 40, 32), device=device) for _ in range(2))
+    dcorr = torch.randn((2, 3, 40, 24), device=device)
+    dfl, dfr = torch.empty_like(fl), torch.empty_like(fr)
+    err = build.library().hst_correlation_backward(
+        dcorr.data_ptr(), fl.data_ptr(), fr.data_ptr(), dfl.data_ptr(), dfr.data_ptr(),
+        2, 3, 40, 32, 24, 1.0, 0, 1, build.stream_handle(fl))
+    assert err == 1
 
 
 @pytest.mark.parametrize("with_gc", [False, True])
