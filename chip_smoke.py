@@ -130,10 +130,15 @@ Phases, each printed with its elapsed seconds:
      ``hst_soft_argmin_dlead_backward``) against their plain versions in
      float32 (1e-5 of the largest magnitude) and bf16 (>= 99.9 % within one
      bf16 step, all within two), at the serving shapes (B = 8 and 32 at
-     90x160) and the training one (B = 8 at 16x32), timed beside their
-     bounds; one ``make_train_step`` of each network from its committed
-     weights on the stored batch (``reference/*_train_step.npz``) against
-     JAX's loss, gradient norm and gradients, in float32 and bf16
+     90x160) and the training one (B = 8 at 16x32), two calls bit-equal,
+     timed beside their bounds; the soft-argmin ones with both cotangents
+     and with ``gd`` only (the training step's launch), each on its staged
+     route (``soft_argmin_backward_plan``; 16-byte cp.async in and 16-byte
+     stores out in every instantiation's SASS, checked at the build), and
+     so are the training loops' launches; one ``make_train_step`` of each
+     network from its committed weights on the stored batch
+     (``reference/*_train_step.npz``) against JAX's loss, gradient norm and
+     gradients, in float32 and bf16
      (``reference.TRAIN_F32_*``, ``reference.bf16_grad_check``), with TF32
      read off in the float32 step's forward and backward;
      ``train_synthetic`` of the flagship from ``init_params``: 30 steps,
@@ -1819,7 +1824,11 @@ def check_backward(name: str, got, want) -> str:
 
 def backward_kernel_rows(rng, flush, dev, c, d, scale, card) -> list:
     """Each backward kernel against its plain version (float32 and bf16) at
-    :data:`BWD_SHAPES`; the bf16 kernel's time beside its bound."""
+    :data:`BWD_SHAPES`, two calls bit-equal; the bf16 kernel's time beside its
+    bound.  The soft-argmin backward kernels run with both cotangents and
+    with ``gd`` only (the training step's launch: its loss never reads the
+    confidence), each on the staged route (asserted); their plain version is
+    timed once a shape, with both cotangents."""
     import numpy as np
     import torch
 
@@ -1837,55 +1846,63 @@ def backward_kernel_rows(rng, flush, dev, c, d, scale, card) -> list:
             logits = randn(b, h, w, d, s=3.0).to(dtype)
             cost = randn(b, d, h, w, s=3.0).to(dtype)
             gd, gc = randn(b, h, w), randn(b, h, w)
-            cases = [
-                (kc.CORRELATION_BWD, "csrc/correlation.cu",
-                 "hobot_stereonet_tpu/ops/pallas/correlation.py:66",
-                 lambda: kc.correlation_volume_backward(dcorr, fl, fr),
-                 lambda: kc.correlation_volume_backward_plain(dcorr, fl, fr),
-                 b * h * w * (d + 4 * c) * fl.element_size(), 4.0 * b * h * w * d * c),
-                (kc.SOFT_ARGMIN_BWD, "csrc/soft_argmin.cu",
-                 "hobot_stereonet_tpu/ops/pallas/correlation.py:124",
-                 lambda: (kc.soft_argmin_confidence_backward(logits, gd, gc, scale),),
-                 lambda: (kc.soft_argmin_confidence_backward_plain(logits, gd, gc, scale),),
-                 b * h * w * (2 * d * logits.element_size() + 8), 10.0 * b * h * w * d),
-                (kc.SOFT_ARGMIN_COST_BWD, "csrc/soft_argmin.cu",
-                 "hobot_stereonet_tpu/ops/pallas/correlation.py:124",
-                 lambda: (kc.soft_argmin_cost_backward(cost, gd, gc, scale),),
-                 lambda: (kc.soft_argmin_cost_backward_plain(cost, gd, gc, scale),),
-                 b * h * w * (2 * d * cost.element_size() + 8), 10.0 * b * h * w * d),
-            ]
-            for name, src, replaces, fn, plain, nbytes, flops in cases:
+            size = logits.element_size()
+            sa = "hobot_stereonet_tpu/ops/pallas/correlation.py:124"
+            cases = [(kc.CORRELATION_BWD, None, "csrc/correlation.cu",
+                      "hobot_stereonet_tpu/ops/pallas/correlation.py:66",
+                      lambda: kc.correlation_volume_backward(dcorr, fl, fr),
+                      lambda: kc.correlation_volume_backward_plain(dcorr, fl, fr), None,
+                      b * h * w * (d + 4 * c) * size, 4.0 * b * h * w * d * c)]
+            for cot, g in (("gd, gc", gc), ("gd", None)):
+                cases += [
+                    (kc.SOFT_ARGMIN_BWD, cot, "csrc/soft_argmin.cu", sa,
+                     lambda g=g: (kc.soft_argmin_confidence_backward(logits, gd, g, scale),),
+                     lambda g=g: (kc.soft_argmin_confidence_backward_plain(logits, gd, g, scale),),
+                     kc.soft_argmin_backward_plan(kc.CHANNEL_LAST, b, d, h * w, logits.data_ptr(),
+                                                  size, g is not None),
+                     b * h * w * (2 * d * size + 4 * (1 + (g is not None))), 10.0 * b * h * w * d),
+                    (kc.SOFT_ARGMIN_COST_BWD, cot, "csrc/soft_argmin.cu", sa,
+                     lambda g=g: (kc.soft_argmin_cost_backward(cost, gd, g, scale),),
+                     lambda g=g: (kc.soft_argmin_cost_backward_plain(cost, gd, g, scale),),
+                     kc.soft_argmin_backward_plan(kc.D_LEADING, b, d, h * w, cost.data_ptr(),
+                                                  size, g is not None),
+                     b * h * w * (2 * d * size + 4 * (1 + (g is not None))), 10.0 * b * h * w * d),
+                ]
+            plain_ms = {}
+            for name, cot, src, replaces, fn, plain, plan, nbytes, flops in cases:
                 build.route_counts.clear()
                 got, want = fn(), plain()
                 routes = dict(build.route_counts)
-                again = fn() if name == kc.CORRELATION_BWD else got
+                again = fn()
                 torch.cuda.synchronize()
+                label = f"{name}{f' ({cot})' if cot else ''} {dtype} B={b} {h}x{w}"
                 detail = "; ".join(check_backward(name, g, p) for g, p in zip(got, want))
-                if name == kc.CORRELATION_BWD:
-                    # Tensor cores in bf16, SIMT in float32; no atomics: two calls, one result.
-                    route = "mma" if dtype == torch.bfloat16 else "simt"
-                    if routes != {f"{name}/{route}": 1}:
-                        raise AssertionError(f"{name} {dtype} B={b} {h}x{w}: routes {routes}")
-                    if not all(torch.equal(g, a) for g, a in zip(got, again)):
-                        raise AssertionError(f"{name} {dtype} B={b} {h}x{w}: two calls differ")
-                    detail += f"; {route} route, two calls bit-equal"
+                # Tensor cores in bf16, SIMT in float32; the soft-argmin's staged route at D = 24.
+                route = plan.route if plan else ("mma" if dtype == torch.bfloat16 else "simt")
+                if routes != {f"{name}/{route}": 1} or (plan and route != "staged"):
+                    raise AssertionError(f"{label}: routes {routes}, planned {route}")
+                if not all(torch.equal(g, a) for g, a in zip(got, again)):
+                    raise AssertionError(f"{label}: two calls differ")
+                detail += f"; {route} route, two calls bit-equal"
                 err = max((g.float() - p.float()).abs().max().item() for g, p in zip(got, want))
                 if dtype != torch.bfloat16:
-                    phase(f"kernel {name} B={b} {h}x{w} float32: {detail}")
+                    phase(f"kernel {label}: {detail}")
                     continue
+                if name not in plain_ms:
+                    plain_ms[name] = median_ms(plain, flush, iters=5)
                 row = dict(
                     name=name, route="cuda", source="hobot_stereonet_tpu_torch/" + src,
                     replaces=replaces, batch=b, shape=f"{h}x{w}", max_abs_err=err,
-                    **({"plan": dict(route="mma", instruction="mma.sync.m16n8k16 bf16",
-                                     deterministic=True)}
-                       if name == kc.CORRELATION_BWD else {}),
-                    tolerance=detail, ms=median_ms(fn, flush),
-                    plain_ms=median_ms(plain, flush, iters=5),
+                    **({"cotangents": cot} if cot else {}),
+                    plan=(plan._asdict() if plan else
+                          dict(route="mma", instruction="mma.sync.m16n8k16 bf16",
+                               deterministic=True)),
+                    tolerance=detail, ms=median_ms(fn, flush), plain_ms=plain_ms[name],
                     bound=bound(nbytes, flops, BF16_FLOPS if name == kc.CORRELATION_BWD
                                 else F32_FLOPS),
                     library_ms=None)
                 rows.append(row)
-                phase(f"kernel {name} B={b} {h}x{w} bf16: {detail}; kernel {row['ms']:.4f} ms, "
+                phase(f"kernel {label}: {detail}; plan {row['plan']}; kernel {row['ms']:.4f} ms, "
                       f"plain {row['plain_ms']:.4f} ms, bound {row['bound'][0]:.4f} ms "
                       f"({row['bound'][1]}, {100 * row['bound'][0] / row['ms']:.0f}% of it); "
                       f"{card}")
@@ -2020,6 +2037,7 @@ def training_phase(ctx: dict) -> tuple:
     if any(counts[n] != k for n, k in want.items()):
         raise AssertionError(f"expected {want} launches in {TRAIN_STEPS} steps: {counts}")
     check_routes("flagship training loop", "correlation_bwd", "mma", counts["correlation_bwd"])
+    check_routes("flagship training loop", "soft_argmin_bwd", "staged", counts["soft_argmin_bwd"])
     launches = {(n, None): counts[n] for n in ("correlation_bwd", "soft_argmin_bwd")}
 
     # The device step alone: one batch on the card, 10 steps, then one profiled.
@@ -2088,6 +2106,8 @@ def training_phase(ctx: dict) -> tuple:
         raise AssertionError(f"CLASSIC training: losses {closs}, launches {ccounts}")
     check_routes("classic training loop", "soft_argmin_cost", "vector",
                  ccounts["soft_argmin_cost"])
+    check_routes("classic training loop", "soft_argmin_cost_bwd", "staged",
+                 ccounts["soft_argmin_cost_bwd"])
     launches[("soft_argmin_cost_bwd", None)] = ccounts["soft_argmin_cost_bwd"]
     return rows, launches
 
@@ -3154,6 +3174,16 @@ def main() -> int:
     if min(bwd_hmma, bwd_cp) <= 0:
         raise AssertionError("expected HMMA and LDGSTS.128 (16-byte cp.async) in "
                              f"correlation_backward_mma_kernel: {bwd_hmma}, {bwd_cp}")
+    # The soft-argmin backward's staged route: every instantiation stages its
+    # tile with 16-byte cp.async and stores it with 16-byte stores.
+    staged = {fn: {k: info.get("sass", {}).get(k, 0) for k in ("LDGSTS.128", "STG.128", "SHFL")}
+              for fn, info in report.items()
+              if fn.startswith("soft_argmin_backward_staged_kernel")}
+    phase(f"build: soft_argmin_backward_staged_kernel 16-byte copies in, 16-byte stores out, "
+          f"shuffles, by instantiation: {staged}")
+    if len(staged) != 32 or min(min(v["LDGSTS.128"], v["STG.128"]) for v in staged.values()) <= 0:
+        raise AssertionError("expected LDGSTS.128 and STG.128 in each of the 32 instantiations "
+                             f"of soft_argmin_backward_staged_kernel: {staged}")
     igmma = min(sass(k, "IGMMA") for k in ("int8_conv_wgmma_kernel", "int8_conv_dense_kernel"))
     # Each instantiation of the TMA kernel, the 8-row tiles of the dilated
     # and 3-D convs included, issues wgmma and TMA loads.
@@ -3540,8 +3570,8 @@ def main() -> int:
         return path_launches[(r["name"], r.get("mode") or r.get("scheme"))]
 
     print(json.dumps({"kernels": [dict(
-        name=r["name"], **{k: r[k] for k in ("mode", "shape", "scheme", "convs", "per_forward")
-                           if k in r},
+        name=r["name"], **{k: r[k] for k in ("mode", "shape", "scheme", "convs", "per_forward",
+                                             "cotangents") if k in r},
         route=r["route"], source=r["source"], replaces=r["replaces"],
         batch=r["batch"], launches=row_launches(r), max_abs_err=r["max_abs_err"], ms=r["ms"],
         plain_ms=r["plain_ms"], bound_ms=r["bound"][0], bound_by=r["bound"][1],

@@ -55,10 +55,12 @@ _SIGNATURES = {
     "hst_soft_argmin_dlead": (_P, _P, _P, _I, _I, _I, _F, _I, _I, _P),
     # dcorr, fl, fr, dfl, dfr, B, H, W, C, D, 1/divisor, is_bf16, mma (else SIMT), stream
     "hst_correlation_backward": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P),
-    # logits, gd, gc, dlogits, N, D, scale, is_bf16, stream
-    "hst_soft_argmin_backward": (_P, _P, _P, _P, _I, _I, _F, _I, _P),
-    # cost, gd, gc, dcost, B, D, H*W, scale, is_bf16, stream
-    "hst_soft_argmin_dlead_backward": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
+    # x, gd, gc, dx, B, D, H*W, scale, is_bf16, then the plan
+    # (correlation.soft_argmin_backward_plan): staged (else scalar), lanes, pixels,
+    # threads, grid x, grid y, shared bytes; stream.  x: logits [B, H*W, D] or
+    # a cost [B, D, H*W].
+    "hst_soft_argmin_backward": (_P, _P, _P, _P, _I, _I, _I, _F, _I) + (_I,) * 7 + (_P,),
+    "hst_soft_argmin_dlead_backward": (_P, _P, _P, _P, _I, _I, _I, _F, _I) + (_I,) * 7 + (_P,),
     # x, w, s_k, bias, sx, qs, y, plan (int8_conv.PlanArgs), per_sample, divide, stream
     "hst_int8_conv": (_P,) * 8 + (_I, _I, _P),
     # acc, its row stride, rows, Cout, rows a sample, sx, per_sample, s_k, bias, y, is_bf16,

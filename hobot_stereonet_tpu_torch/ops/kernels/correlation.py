@@ -15,7 +15,8 @@ The three public functions are differentiable: each is a
 (``*_backward_plain``) on CPU tensors.  The backward follows the
 vector-Jacobian product that ``jax.vjp`` takes of the JAX package's XLA
 functions (``build_correlation_volume``, ``soft_argmin``,
-``disparity_confidence``), rounding where it rounds.  The forwards are the
+``disparity_confidence``), rounding where it rounds; the soft-argmin ones
+on the launch :func:`soft_argmin_backward_plan` fixes.  The forwards are the
 custom operators ``hst::correlation_volume``, ``hst::soft_argmin_confidence``
 and ``hst::soft_argmin_cost``; the Function wraps them only where autograd
 records the call, so that under ``torch.no_grad`` or
@@ -376,7 +377,11 @@ def soft_argmin_confidence_backward_plain(logits: torch.Tensor, gd, gc, scale: f
     return _softmax_vjp(logits.to(dt), gd, gc, scale).to(logits.dtype)
 
 
-def _soft_argmin_backward_launch(name, fn, x, gd, gc, scale, shape, *dims):
+def _soft_argmin_backward_launch(name, x, gd, gc, scale, shape, dims, plan=None):
+    """Launch the backward kernel of ``name`` (SOFT_ARGMIN_BWD: channel-last
+    logits, SOFT_ARGMIN_COST_BWD: a D-leading cost) on the plan
+    :func:`soft_argmin_backward_plan` gives, or on ``plan``; the C side
+    refuses a plan that does not fit."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     if not x.is_contiguous():
@@ -384,25 +389,34 @@ def _soft_argmin_backward_launch(name, fn, x, gd, gc, scale, shape, *dims):
     for g in (gd, gc):
         _check_cotangent(name, g, shape, torch.float32, x.device)
     grads = [None if g is None else g.contiguous() for g in (gd, gc)]
+    b, d, plane = dims
+    layout = CHANNEL_LAST if name == SOFT_ARGMIN_BWD else D_LEADING
+    if plan is None:
+        plan = soft_argmin_backward_plan(layout, b, d, plane, x.data_ptr(), x.element_size(),
+                                         gc is not None)
     dx = torch.empty_like(x)
+    fn = "hst_soft_argmin_backward" if layout == CHANNEL_LAST else "hst_soft_argmin_dlead_backward"
     err = getattr(build.library(), fn)(
-        x.data_ptr(), *(0 if g is None else g.data_ptr() for g in grads), dx.data_ptr(), *dims,
-        float(scale), int(x.dtype == torch.bfloat16), build.stream_handle(x))
+        x.data_ptr(), *(0 if g is None else g.data_ptr() for g in grads), dx.data_ptr(), b, d,
+        plane, float(scale), int(x.dtype == torch.bfloat16), int(plan.route == "staged"),
+        plan.lanes, plan.pixels, plan.threads, *plan.grid, plan.smem, build.stream_handle(x))
     build.check(name, err)
     build.launch_counts[name] += 1
+    build.route_counts[f"{name}/{plan.route}"] += 1
     return dx
 
 
 def soft_argmin_confidence_backward(logits: torch.Tensor, gd, gc, scale: float = 1.0):
     """The backward of :func:`soft_argmin_confidence`: CUDA tensors go
-    through ``hst_soft_argmin_backward`` (``csrc/soft_argmin.cu``), CPU
-    tensors through :func:`soft_argmin_confidence_backward_plain`."""
+    through ``hst_soft_argmin_backward`` (``csrc/soft_argmin.cu``) on the
+    route :func:`soft_argmin_backward_plan` picks, CPU tensors through
+    :func:`soft_argmin_confidence_backward_plain`."""
     if logits.device.type == "cpu":
         return soft_argmin_confidence_backward_plain(logits, gd, gc, scale)
     _check_logits(logits)
     b, h, w, d = logits.shape
-    return _soft_argmin_backward_launch(SOFT_ARGMIN_BWD, "hst_soft_argmin_backward", logits,
-                                        gd, gc, scale, (b, h, w), b * h * w, d)
+    return _soft_argmin_backward_launch(SOFT_ARGMIN_BWD, logits, gd, gc, scale, (b, h, w),
+                                        (b, d, h * w))
 
 
 class _SoftArgmin(torch.autograd.Function):
@@ -503,14 +517,15 @@ def soft_argmin_cost_backward_plain(cost: torch.Tensor, gd, gc, scale: float = 1
 def soft_argmin_cost_backward(cost: torch.Tensor, gd, gc, scale: float = 1.0):
     """The backward of :func:`soft_argmin_cost`: CUDA tensors go through
     ``hst_soft_argmin_dlead_backward`` (``csrc/soft_argmin.cu``), which reads
-    and writes the cost's D planes where they lie; CPU tensors through
+    and writes the cost's D planes where they lie, on the route
+    :func:`soft_argmin_backward_plan` picks; CPU tensors through
     :func:`soft_argmin_cost_backward_plain`."""
     if cost.device.type == "cpu":
         return soft_argmin_cost_backward_plain(cost, gd, gc, scale)
     _check_cost(cost)
     b, d, h, w = cost.shape
-    return _soft_argmin_backward_launch(SOFT_ARGMIN_COST_BWD, "hst_soft_argmin_dlead_backward",
-                                        cost, gd, gc, scale, (b, h, w), b, d, h * w)
+    return _soft_argmin_backward_launch(SOFT_ARGMIN_COST_BWD, cost, gd, gc, scale, (b, h, w),
+                                        (b, d, h * w))
 
 
 def soft_argmin_cost(cost: torch.Tensor, scale: float = 1.0):
@@ -591,3 +606,86 @@ def soft_argmin_cost_plan(b: int, d: int, plane: int, ptr: int, itemsize: int) -
         return CostPlan("vector", p, t, (-(-plane // (p * t)), b))
     t = SOFT_ARGMIN_COST_SCALAR_THREADS
     return CostPlan("scalar", 1, t, (-(-plane // t), b))
+
+
+CHANNEL_LAST, D_LEADING = "channel_last", "d_leading"
+# The backward kernels' staged route as csrc/soft_argmin.cu compiles it: lanes a
+# pixel, the most threads a block and the largest D-leading tile it takes.  The
+# plan gives a block BWD_BLOCK_THREADS threads and a pixel the fewest lanes (two
+# at least with a confidence cotangent) whose threads reach BWD_FILL (two
+# 128-thread blocks on each of an H100's 132 multiprocessors):
+# scripts/torch_cost_kernels_ab.py --sweep measured these.
+BWD_LANES = (1, 2, 4, 8)
+BWD_MAX_THREADS = 256
+BWD_DLEAD_MAX_TILE = 64
+BWD_TILES = (256, 128, 64, 32, 16, 8, 4)
+BWD_BLOCK_THREADS = 64
+BWD_FILL = 132 * 256
+
+
+class BackwardPlan(NamedTuple):
+    """A launch of ``hst_soft_argmin_backward`` or ``hst_soft_argmin_dlead_backward``."""
+    route: str           # "staged" or "scalar"
+    lanes: int           # L: lanes a pixel (1 on the scalar route)
+    threads: int         # threads a block: pixels * lanes
+    pixels: int          # T: pixels a tile (a block)
+    grid: tuple          # channel-last (tiles, 1); D-leading (tiles along a plane, B)
+    smem: int            # dynamic shared-memory bytes
+
+
+def bwd_lanes(n: int, has_gc: bool) -> int:
+    """L for ``n`` pixels: the fewest lanes a pixel whose threads, n * L, reach
+    ``BWD_FILL`` (every lane beyond one repeats the ordered sums' steps); at
+    least two with a confidence cotangent, whose terms at one lane a pixel
+    take 110 registers (and half the occupancy) against 48 at two."""
+    return next((lanes for lanes in BWD_LANES[int(has_gc):] if n * lanes >= BWD_FILL),
+                BWD_LANES[-1])
+
+
+def _bwd_tile_fits(layout: str, plane: int, itemsize: int, lanes: int, t: int) -> bool:
+    threads = t * lanes
+    fits = lanes in BWD_LANES and t > 0 and threads % 32 == 0 and threads <= BWD_MAX_THREADS
+    if layout == D_LEADING:          # whole 16-byte rows of a plane, no tile across samples
+        fits = (fits and t <= BWD_DLEAD_MAX_TILE and t & (t - 1) == 0 and plane % t == 0
+                and (t * itemsize) % 16 == 0)
+    return fits
+
+
+def soft_argmin_backward_plan(layout: str, b: int, d: int, plane: int, ptr: int, itemsize: int,
+                              has_gc: bool, lanes: int | None = None,
+                              pixels: int | None = None) -> BackwardPlan:
+    """The launch of a soft-argmin backward kernel, fixed by the shape and the
+    input's address before launch.
+
+    ``layout`` is ``CHANNEL_LAST`` (logits [b, plane, d]) or ``D_LEADING``
+    (a cost [b, d, plane]); ``ptr`` the input's address, ``itemsize`` its
+    element's bytes; ``has_gc`` whether a confidence cotangent comes.  The
+    staged route needs d == ``SOFT_ARGMIN_VECTOR_D``, a 16-byte aligned
+    input and a tile: L lanes a pixel (:func:`bwd_lanes`, or ``lanes``) and
+    the largest tile T of ``BWD_TILES`` (or ``pixels``) with T * L threads a
+    multiple of 32 up to ``BWD_BLOCK_THREADS``; D-leading, T must also be a
+    power of two up to ``BWD_DLEAD_MAX_TILE`` that divides the plane in whole
+    16-byte rows.  Anything else takes the scalar route, one thread a pixel
+    at 256 a block.  Raises ValueError where an explicit ``lanes`` or
+    ``pixels`` does not fit.
+    """
+    if layout not in (CHANNEL_LAST, D_LEADING):
+        raise ValueError(f"unknown layout {layout!r}")
+    n = b * plane
+    if d == SOFT_ARGMIN_VECTOR_D and ptr % 16 == 0:
+        lanes_ = lanes or bwd_lanes(n, has_gc)
+        tiles = (pixels,) if pixels else [t for t in BWD_TILES if t * lanes_ <= BWD_BLOCK_THREADS]
+        t = next((t for t in tiles if _bwd_tile_fits(layout, plane, itemsize, lanes_, t)), None)
+        if t and layout == CHANNEL_LAST:
+            return BackwardPlan("staged", lanes_, t * lanes_, t, (-(-n // t), 1),
+                                t * d * itemsize)
+        if t:
+            return BackwardPlan("staged", lanes_, t * lanes_, t, (plane // t, b),
+                                d * (BWD_DLEAD_MAX_TILE + 16 // itemsize) * itemsize)
+    if lanes or pixels:
+        raise ValueError(f"no staged launch of L = {lanes}, T = {pixels} fits {layout} "
+                         f"[{b}, {d}, {plane}] at {ptr:#x}")
+    t = SOFT_ARGMIN_COST_SCALAR_THREADS
+    if layout == CHANNEL_LAST:
+        return BackwardPlan("scalar", 1, t, t, (-(-n // t), 1), 0)
+    return BackwardPlan("scalar", 1, t, t, (-(-plane // t), b), 0)

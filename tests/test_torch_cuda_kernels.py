@@ -22,7 +22,8 @@ D-leading cost, at f32 rounding (rtol 1e-5); the D-leading one's vector route bi
 scalar route (the same arithmetic in the same order).  The backward kernels: in f32
 within 1e-5 of the largest magnitude, in bf16 at least 99.9 % within one
 bf16 step of the plain version and all within two (their sums run in
-another order).  The CLASSIC StereoNet in
+another order); the soft-argmin backward's plans (every L and T, and its
+scalar route) bit-equal to each other, as they run one routine.  The CLASSIC StereoNet in
 float32 on the card against the CPU: disparity 1e-3 px, confidence 1e-4
 (the flagship's card-against-CPU bounds in chip_smoke.py; TF32 off).
 """
@@ -346,7 +347,7 @@ def test_cost_kernels_refuse_a_route_that_does_not_fit(device):
                                      (4, torch.bfloat16), (33, torch.float32)])
 def test_soft_argmin_backward_kernels(device, d, dtype, with_gc):
     """Both layouts, with ties in the max and with and without a confidence
-    cotangent."""
+    cotangent; D = 24 on the staged route, other D on the scalar one."""
     g = torch.Generator(device="cpu").manual_seed(d)
     b, h, w = 3, 9, 13
     logits = 3.0 * torch.randn((b, h, w, d), generator=g)
@@ -355,14 +356,134 @@ def test_soft_argmin_backward_kernels(device, d, dtype, with_gc):
     gd = torch.randn((b, h, w), generator=g).to(device)
     gc = torch.randn((b, h, w), generator=g).to(device) if with_gc else None
     cost = -logits.permute(0, 3, 1, 2).contiguous()
-    n0 = dict(build.launch_counts)
+    n0, r0 = dict(build.launch_counts), dict(build.route_counts)
     got = soft_argmin_confidence_backward(logits, gd, gc, 8.0)
     got_cost = soft_argmin_cost_backward(cost, gd, gc, 8.0)
     torch.cuda.synchronize()
-    for name in ("soft_argmin_bwd", "soft_argmin_cost_bwd"):
+    # D-leading at D = 24: the plane 9 x 13 = 117 takes no tile of whole 16-byte rows.
+    routes = {"soft_argmin_bwd": "staged" if d == 24 else "scalar",
+              "soft_argmin_cost_bwd": "scalar"}
+    for name, route in routes.items():
         assert build.launch_counts[name] == n0.get(name, 0) + 1
+        key = f"{name}/{route}"
+        assert build.route_counts[key] == r0.get(key, 0) + 1
     _bwd_check(got, soft_argmin_confidence_backward_plain(logits, gd, gc, 8.0))
     _bwd_check(got_cost, soft_argmin_cost_backward_plain(cost, gd, gc, 8.0))
+
+
+def _sa_bwd_inputs(b, h, w, dtype, device, seed):
+    """Logits [b, h, w, 24] with ties in the max at every third pixel and
+    near ties at every seventh, the matching cost [b, 24, h, w], and the
+    cotangents gd, gc."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    logits = 3.0 * torch.randn((b, h, w, 24), generator=g)
+    flat = logits.view(-1, 24)
+    flat[::3, 2] = flat[::3, 17] = flat[::3].amax(-1) + 1.0
+    near = flat[1::7]                   # a max of 1, candidates one and two float32 steps below
+    near -= near.amax(-1, keepdim=True) + 2.0
+    near[:, 5], near[:, 9], near[:, 20] = 1.0, 1.0 - 2.0 ** -24, 1.0 - 2.0 ** -23
+    logits = logits.to(device, dtype)
+    gd, gc = (torch.randn((b, h, w), generator=g).to(device) for _ in range(2))
+    return logits, (-logits).permute(0, 3, 1, 2).contiguous(), gd, gc
+
+
+# (B, h, w): the sharded training step's tiles, the training shape, a plane of
+# 16-byte rows (D-leading staged) whose pixel count is not a multiple of the
+# channel-last tile (a short last tile), and serving at B = 8.
+SA_BWD_SHAPES = [(2, 16, 32), (4, 8, 32), (8, 16, 32), (3, 5, 40), (8, 90, 160)]
+
+
+@pytest.mark.parametrize("with_gc", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,h,w", SA_BWD_SHAPES)
+def test_soft_argmin_backward_staged_route(device, b, h, w, dtype, with_gc):
+    """Both layouts on the staged route at the main path's shapes and the
+    sharded step's tiles, against the plain version, two calls bit-equal."""
+    logits, cost, gd, gc = _sa_bwd_inputs(b, h, w, dtype, device, b + h + w)
+    gc = gc if with_gc else None
+    for name, fn, plain, x in (
+            ("soft_argmin_bwd", soft_argmin_confidence_backward,
+             soft_argmin_confidence_backward_plain, logits),
+            ("soft_argmin_cost_bwd", soft_argmin_cost_backward, soft_argmin_cost_backward_plain,
+             cost)):
+        r0 = build.route_counts[f"{name}/staged"]
+        first, second = fn(x, gd, gc, 8.0), fn(x, gd, gc, 8.0)
+        torch.cuda.synchronize()
+        assert build.route_counts[f"{name}/staged"] == r0 + 2
+        assert torch.equal(first, second)
+        _bwd_check(first, plain(x, gd, gc, 8.0))
+
+
+def test_soft_argmin_backward_short_last_tile(device):
+    """Channel-last: 105 pixels, so the last tile holds fewer rows than the
+    others; its rows equal the plain version's and those of a batch where
+    the same pixels lie inside a whole tile."""
+    logits, _, gd, gc = _sa_bwd_inputs(3, 5, 7, torch.bfloat16, device, 5)
+    plan = kc.soft_argmin_backward_plan(kc.CHANNEL_LAST, 3, 24, 35, logits.data_ptr(), 2, True)
+    assert plan.route == "staged" and 105 % plan.pixels
+    big = torch.full((4, 5, 7, 24), 7.0, dtype=torch.bfloat16, device=device)
+    got = soft_argmin_confidence_backward(logits, gd, gc, 8.0)
+    _bwd_check(got, soft_argmin_confidence_backward_plain(logits, gd, gc, 8.0))
+    # A larger batch whose first three samples are the same: the same bits.
+    big[:3] = logits
+    gd4, gc4 = torch.cat([gd, gd[:1]]), torch.cat([gc, gc[:1]])
+    assert torch.equal(soft_argmin_confidence_backward(big, gd4, gc4, 8.0)[:3], got)
+
+
+@pytest.mark.parametrize("with_gc", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_soft_argmin_backward_every_plan_is_bit_equal(device, dtype, with_gc):
+    """Every staged plan of L lanes and T pixels that fits, and the scalar
+    route, give the default plan's bits: the same operations in the same
+    order."""
+    b, h, w = 2, 16, 32
+    logits, cost, gd, gc = _sa_bwd_inputs(b, h, w, dtype, device, 11)
+    gc = gc if with_gc else None
+    for name, layout, x, fn in (
+            ("soft_argmin_bwd", kc.CHANNEL_LAST, logits, soft_argmin_confidence_backward),
+            ("soft_argmin_cost_bwd", kc.D_LEADING, cost, soft_argmin_cost_backward)):
+        want = fn(x, gd, gc, 8.0)
+        scalar = kc.BackwardPlan("scalar", 1, 256, 256, (4, 1) if layout == kc.CHANNEL_LAST
+                                 else (2, b), 0)
+        plans = [scalar]
+        for lanes in kc.BWD_LANES:
+            for t in kc.BWD_TILES:
+                try:
+                    plans.append(kc.soft_argmin_backward_plan(
+                        layout, b, 24, h * w, x.data_ptr(), x.element_size(), with_gc,
+                        lanes=lanes, pixels=t))
+                except ValueError:
+                    pass
+        assert len(plans) > 10
+        for plan in plans:
+            got = kc._soft_argmin_backward_launch(name, x, gd, gc, 8.0, (b, h, w),
+                                                  (b, 24, h * w), plan=plan)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), plan
+
+
+def test_soft_argmin_backward_refuses_a_plan_that_does_not_fit(device):
+    """The wrapper plans; the C side only checks: a staged plan with the
+    wrong grid, shared bytes or lanes, on D != 24, or on an input 2 bytes
+    into its storage returns cudaErrorInvalidValue (1) and counts nothing."""
+    logits, cost, gd, _ = _sa_bwd_inputs(2, 16, 32, torch.bfloat16, device, 3)
+    plan = kc.soft_argmin_backward_plan(kc.D_LEADING, 2, 24, 512, cost.data_ptr(), 2, False)
+    assert plan.route == "staged"
+    odd = torch.zeros(cost.numel() + 1, dtype=torch.bfloat16, device=device)[1:].view(cost.shape)
+    d4 = torch.zeros((2, 4, 16, 32), dtype=torch.bfloat16, device=device)
+    bad = [(cost, plan._replace(grid=(plan.grid[0] + 1, plan.grid[1]))),
+           (cost, plan._replace(smem=plan.smem + 16)), (cost, plan._replace(lanes=3)),
+           (cost, plan._replace(threads=2 * plan.threads)), (odd, plan), (d4, plan)]
+    n0 = dict(build.route_counts)
+    for x, p in bad:
+        with pytest.raises(RuntimeError, match="CUDA error 1 at launch"):
+            kc._soft_argmin_backward_launch("soft_argmin_cost_bwd", x, gd, None, 8.0, (2, 16, 32),
+                                            (2, x.shape[1], 512), plan=p)
+    cl = kc.soft_argmin_backward_plan(kc.CHANNEL_LAST, 2, 24, 512, logits.data_ptr(), 2, False)
+    with pytest.raises(RuntimeError, match="CUDA error 1 at launch"):
+        kc._soft_argmin_backward_launch("soft_argmin_bwd", logits, gd, None, 8.0, (2, 16, 32),
+                                        (2, 24, 512), plan=cl._replace(pixels=cl.pixels // 2))
+    assert dict(build.route_counts) == n0
 
 
 @pytest.mark.parametrize("model", ["fast", "classic"])
